@@ -1,0 +1,48 @@
+"""Public wrapper of ``trq_group_mvm``: device dispatch and lead dims.
+
+A CPU tensor runs the plain version (``ref.py``), a CUDA tensor the CUDA
+kernel (``kernel.py``); nothing falls back from one to the other.  Unlike
+the TPU wrapper there is no tile padding here: the kernel masks ragged M,
+K and N edges itself.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core.trq import TRQParams
+from ..build import route
+from .kernel import trq_group_mvm_cuda
+from .ref import trq_group_mvm_ref
+
+
+def pack_scalars(p: TRQParams, grid, device) -> torch.Tensor:
+    """[delta_r1, bias, grid] as one f32 device tensor (no host sync)."""
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=device).reshape(())
+                        for v in (p.delta_r1, p.bias, grid)])
+
+
+def trq_group_mvm_2d(a: torch.Tensor, w: torch.Tensor, scalars, *,
+                     n_r1: int, n_r2: int, m: int, nu: int = 1,
+                     mode: str = "twin"):
+    """(M, K) x (K, N) per-group TRQ matmul -> (y f32, ops int64)."""
+    fn = trq_group_mvm_ref if route(a) == "cpu" else trq_group_mvm_cuda
+    return fn(a, w, scalars, n_r1=n_r1, n_r2=n_r2, m=m, nu=nu, mode=mode)
+
+
+def trq_group_mvm(a: torch.Tensor, w: torch.Tensor, p: TRQParams,
+                  a_scale=1.0, w_scale=1.0, *, with_ops: bool = False):
+    """Per-128-row-group signed-TRQ matmul: a (..., K) @ w (K, N), the
+    counterpart of ``repro.kernels.trq_group_mvm_pallas``.  With
+    ``with_ops`` also returns the total A/D operations (int64)."""
+    lead = a.shape[:-1]
+    k = a.shape[-1]
+    n = w.shape[1]
+    grid = (torch.as_tensor(a_scale, dtype=torch.float32, device=a.device)
+            * torch.as_tensor(w_scale, dtype=torch.float32, device=a.device))
+    y, ops = trq_group_mvm_2d(
+        a.reshape(-1, k).float().contiguous(), w.float().contiguous(),
+        pack_scalars(p, grid, a.device), n_r1=p.n_r1, n_r2=p.n_r2, m=p.m,
+        nu=p.nu, mode=p.mode)
+    y = y.reshape(*lead, n)
+    return (y, ops) if with_ops else y

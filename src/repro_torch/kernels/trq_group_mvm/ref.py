@@ -1,0 +1,38 @@
+"""Plain PyTorch version of the ``trq_group_mvm`` kernel: the per-group TRQ
+matmul of ``repro.pim.crossbar.fake_quant_mvm``, with the kernel's operand
+contract.  The CPU tests use it, and ``chip_smoke.py`` holds the CUDA
+kernel against it on the card; it never runs on the main path when a card
+is present."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ...core.trq import TRQParams, trq_ad_ops, trq_quant
+
+XBAR = 128
+
+
+def trq_group_mvm_ref(a: torch.Tensor, w: torch.Tensor,
+                      scalars: torch.Tensor, *, n_r1: int, n_r2: int, m: int,
+                      nu: int = 1, mode: str = "twin"):
+    """a: (M, K) f32; w: (K, N) f32; scalars: [delta_r1, bias, grid] f32.
+    Returns (y (M, N) f32, ops 0-dim int64 over the valid region)."""
+    mm, k = a.shape
+    n = w.shape[1]
+    pad = (-k) % XBAR
+    g = (k + pad) // XBAR
+    a_g = F.pad(a.float(), (0, pad)).reshape(mm, g, XBAR)
+    w_g = F.pad(w.float(), (0, 0, 0, pad)).reshape(g, XBAR, n)
+    psum = torch.einsum("mgx,gxn->mgn", a_g, w_g)       # (M, G, N) f32
+    p = TRQParams(delta_r1=scalars[0], bias=scalars[1], n_r1=n_r1,
+                  n_r2=n_r2, m=m, nu=nu, mode=mode, signed=True)
+    grid = scalars[2]
+    scaled = psum / grid
+    q = trq_quant(scaled, p) * grid
+    # accumulate the groups in order, as the kernel's group loop does
+    y = torch.zeros((mm, n), dtype=torch.float32, device=a.device)
+    for gi in range(g):
+        y = y + q[:, gi]
+    ops = trq_ad_ops(scaled, p).sum(dtype=torch.int64)
+    return y, ops

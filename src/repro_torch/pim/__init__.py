@@ -1,0 +1,12 @@
+"""repro_torch.pim — PIM execution backends and the weight-stationary plan.
+
+``pim_mvm(x, w, trq, backend=...)`` runs one matmul on a named datapath
+(``exact`` | ``fake_quant`` | ``pallas``) and returns ``PimOut(y, ad_ops)``;
+``prepare_params`` programs a whole model once into a ``PimPlan``.
+"""
+from .backend import (PimOut, get_backend, list_backends, pim_mvm,
+                      register_backend, use_backend)
+from .crossbar import (PimConfig, auto_range_fit, fake_quant_mvm,
+                       group_activations, group_weights)
+from .plan import (LayerPlan, PimPlan, check_plan, prepare_linear,
+                   prepare_params, quant_state_token, run_prepared)

@@ -1,0 +1,237 @@
+"""Crossbar programming cache: weight-stationary PIM execution plans
+(port of ``repro.pim.plan`` for the exact, fake_quant and pallas backends).
+
+``prepare_params`` walks a model once — resolving each layer's SAR
+registers through the same param-path names the QuantState rule table uses
+— and emits a :class:`PimPlan` holding one :class:`LayerPlan` per
+``PimLinear``.  Every backend's prepared fast path (``run_prepared``) is
+bitwise identical to its dynamic call but touches only activations.
+
+Plan fields: ``w_scale`` (frozen max-|w| half of the ADC grid), ``trq``
+(resolved registers), ``w`` (exact: compute-dtype weights), ``w_g``
+(fake_quant: grouped weights; pallas: the grouped f32 image the auto-range
+pre-fit reads), ``w_f32`` (pallas: the (K, N) f32 image the kernel
+streams).  The kernel masks ragged edges itself, so ``w_f32`` is not padded,
+and when K divides by 128 ``w_g`` is a view of ``w_f32``: one f32 copy of
+each weight instead of two.
+
+Unlike the reference, the port's layers are not stacked along a period
+axis: the plan is keyed by each ``PimLinear``'s module path
+(``layers.3.attn.wq``), while registers resolve by its QuantState name,
+which stays period-local under ``scan_layers=True`` (every layer of a
+period-1 model is ``layer_0/...``) and per-depth otherwise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import Optional
+
+import torch
+
+from ..core.quant_state import quant_state_to_dict
+from ..core.trq import TRQParams
+from .backend import (PimOut, _dynamic_scales, get_backend, grid_scale,
+                      zero_ops)
+from .crossbar import (PimConfig, auto_range_fit_grouped,
+                       fake_quant_mvm_grouped, group_activations,
+                       group_weights)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """Frozen weight-side state of ONE planned linear."""
+
+    w_scale: Optional[torch.Tensor] = None
+    trq: Optional[TRQParams] = None
+    w: Optional[torch.Tensor] = None        # exact
+    w_g: Optional[torch.Tensor] = None      # fake_quant / pallas pre-fit
+    w_f32: Optional[torch.Tensor] = None    # pallas
+    backend: str = "exact"
+    auto_range: bool = False
+    delta_grid: float = 1.0
+    k: int = 0
+    n: int = 0
+    pim: PimConfig = PimConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class PimPlan:
+    """A whole model's programming cache: ``layers`` maps each PimLinear's
+    module path to its LayerPlan.  ``qs_token`` fingerprints the QuantState
+    the registers were resolved from."""
+
+    layers: dict
+    backend: str = "exact"
+    qs_token: Optional[str] = None
+
+    def __len__(self) -> int:
+        return len(self.layers)
+
+    def get(self, path: str) -> Optional[LayerPlan]:
+        return self.layers.get(path)
+
+
+def quant_state_token(qs) -> Optional[str]:
+    """Stable fingerprint of a QuantState's rule table (None for None);
+    the same string the reference computes for the same rules."""
+    if qs is None:
+        return None
+    blob = json.dumps(quant_state_to_dict(qs), sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def prepare_linear(w: torch.Tensor, trq: Optional[TRQParams] = None, *,
+                   backend: str = "exact", auto_range: bool = False,
+                   delta_grid: float = 1.0, pim: PimConfig = PimConfig(),
+                   dtype=None) -> LayerPlan:
+    """Program ONE (K, N) linear for ``backend``.  ``dtype`` is the compute
+    dtype the layer will be called with: the frozen scale is computed on
+    the weights cast to it, as the dynamic path does."""
+    get_backend(backend)
+    if w.ndim != 2:
+        raise ValueError(f"prepare_linear wants (K, N), got {tuple(w.shape)}")
+    k, n = int(w.shape[0]), int(w.shape[1])
+    w_cast = w.to(dtype) if dtype is not None else w
+    if trq is not None:
+        trq = trq.to(w.device)
+    kw = dict(trq=trq, backend=backend, auto_range=auto_range,
+              delta_grid=float(delta_grid), k=k, n=n, pim=pim)
+    if backend == "exact":
+        return LayerPlan(w=w_cast, **kw)
+    if backend in ("fake_quant", "pallas"):
+        w_scale = torch.clamp_min(torch.amax(torch.abs(w_cast)),
+                                  1e-6) / 127.0
+        if backend == "fake_quant":
+            return LayerPlan(w_scale=w_scale, w_g=group_weights(w_cast, pim),
+                             **kw)
+        wf = w_cast.float().contiguous()
+        w_g = group_weights(wf, pim) if auto_range else None
+        return LayerPlan(w_scale=w_scale, w_f32=wf, w_g=w_g, **kw)
+    raise ValueError(f"backend {backend!r} has no prepared payload; serve "
+                     f"it dynamically (plan=False)")
+
+
+def has_prepared(backend: str) -> bool:
+    return backend in _PREPARED
+
+
+def iter_linears(model):
+    """(module path, PimLinear) for every planned linear of a model."""
+    from ..models.layers import PimLinear
+    return [(path, mod) for path, mod in model.named_modules()
+            if isinstance(mod, PimLinear)]
+
+
+def prepare_params(model, cfg, quant_state=None,
+                   backend: Optional[str] = None,
+                   pim: PimConfig = PimConfig(), dtype=None) -> PimPlan:
+    """Program every ``PimLinear`` of ``model`` for ``backend`` (default
+    ``cfg.pim_backend``).  Registers resolve through ``quant_state`` by the
+    layer's QuantState name; layers with no rule freeze the model-wide
+    ``cfg.trq`` default and keep auto-ranging, as the dynamic path does."""
+    from ..models.layers import cdtype, trq_params_from_cfg
+    backend = backend or cfg.pim_backend
+    dtype = dtype if dtype is not None else cdtype(cfg)
+    default_trq = trq_params_from_cfg(cfg.trq)
+    layers = {}
+    with torch.no_grad():
+        for path, lin in iter_linears(model):
+            t = quant_state.lookup(lin.name) if quant_state is not None \
+                else None
+            auto = t is None and cfg.trq.auto_range
+            layers[path] = prepare_linear(
+                lin.w, t if t is not None else default_trq, backend=backend,
+                auto_range=auto, delta_grid=cfg.trq.delta_grid, pim=pim,
+                dtype=dtype)
+    return PimPlan(layers=layers, backend=backend,
+                   qs_token=quant_state_token(quant_state))
+
+
+def check_plan(plan: PimPlan, model) -> PimPlan:
+    """Stale-plan guard: every planned path must still name a PimLinear of
+    the same (K, N) in ``model``."""
+    lins = dict(iter_linears(model))
+    for path, lp in plan.layers.items():
+        lin = lins.get(path)
+        if lin is None:
+            raise ValueError(f"stale plan: no PimLinear at {path!r}")
+        if tuple(lin.w.shape) != (lp.k, lp.n):
+            raise ValueError(f"stale plan: {path!r} programmed for "
+                             f"({lp.k}, {lp.n}) but the weight is "
+                             f"{tuple(lin.w.shape)}")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# prepared execution
+# ---------------------------------------------------------------------------
+
+_PREPARED: dict = {}
+
+
+def register_prepared(name: str):
+    def _register(fn):
+        _PREPARED[name] = fn
+        return fn
+    return _register
+
+
+def run_prepared(x: torch.Tensor, lp: LayerPlan,
+                 backend: Optional[str] = None, **knobs) -> PimOut:
+    """Execute ``x @ w`` against a programmed crossbar image."""
+    if not isinstance(lp, LayerPlan):
+        raise TypeError(f"plan= wants a LayerPlan, got {type(lp).__name__}")
+    if backend is not None and backend != lp.backend:
+        raise ValueError(f"plan was programmed for backend {lp.backend!r}, "
+                         f"not {backend!r}")
+    try:
+        fn = _PREPARED[lp.backend]
+    except KeyError:
+        raise KeyError(f"no prepared path registered for backend "
+                       f"{lp.backend!r}; known: {sorted(_PREPARED)}") \
+            from None
+    if x.shape[-1] != lp.k:
+        raise ValueError(f"stale plan: programmed K={lp.k}, activations "
+                         f"have K={x.shape[-1]}")
+    return fn(x, lp, **knobs)
+
+
+@register_prepared("exact")
+def _prepared_exact(x, lp: LayerPlan, **_) -> PimOut:
+    return PimOut(x @ lp.w.to(x.dtype), zero_ops(x.device))
+
+
+@register_prepared("fake_quant")
+def _prepared_fake_quant(x, lp: LayerPlan, *, a_scale=None, w_scale=None,
+                         ste: bool = False, **_) -> PimOut:
+    a_s, w_s = _dynamic_scales(x, None, a_scale,
+                               w_scale if w_scale is not None
+                               else lp.w_scale)
+    grid = grid_scale(a_s, w_s, lp.delta_grid, x.device)
+    y, ops = fake_quant_mvm_grouped(
+        group_activations(x, lp.pim), lp.w_g.to(x.dtype), lp.trq, grid,
+        x.dtype, ste=ste, auto_range=lp.auto_range, with_ops=True)
+    return PimOut(y, ops)
+
+
+@register_prepared("pallas")
+def _prepared_pallas(x, lp: LayerPlan, *, a_scale=None, w_scale=None,
+                     **_) -> PimOut:
+    from ..kernels.trq_group_mvm import pack_scalars, trq_group_mvm_2d
+    a_s, w_s = _dynamic_scales(x, None, a_scale,
+                               w_scale if w_scale is not None
+                               else lp.w_scale)
+    grid = grid_scale(a_s, w_s, lp.delta_grid, x.device)
+    lead = x.shape[:-1]
+    xf = x.float()
+    trq = lp.trq
+    if lp.auto_range:
+        trq = auto_range_fit_grouped(group_activations(xf, lp.pim), lp.w_g,
+                                     trq, grid)
+    y, ops = trq_group_mvm_2d(
+        xf.reshape(-1, lp.k).contiguous(), lp.w_f32,
+        pack_scalars(trq, grid, x.device), n_r1=trq.n_r1, n_r2=trq.n_r2,
+        m=trq.m, nu=trq.nu, mode=trq.mode)
+    return PimOut(y.reshape(*lead, lp.n).to(x.dtype), ops)
