@@ -14,7 +14,7 @@ import dataclasses
 import json
 import os
 import re
-from typing import Optional
+from typing import Any, Mapping, Optional
 
 from .trq import TRQParams, make_params
 
@@ -40,6 +40,26 @@ class QuantState:
 
     def __len__(self) -> int:
         return len(self.rules)
+
+
+def quant_state_from_calibration(cal: Mapping[str, Any], *,
+                                 signed: Optional[bool] = None,
+                                 default: Optional[TRQParams] = None,
+                                 exact_names: bool = True) -> QuantState:
+    """{layer name: LayerCalibration | TRQParams} -> QuantState.
+
+    ``signed`` overrides the signed flag on every rule (the LM fast path
+    quantizes signed per-group partial sums; Algorithm 1 calibrates on the
+    unsigned bit-line grid).  ``exact_names`` anchors each name as a
+    full-string regex; pass False when the keys already are patterns."""
+    rules = []
+    for name, c in cal.items():
+        p = c.params if hasattr(c, "params") else c
+        if signed is not None and p.signed != signed:
+            p = p.replace(signed=signed)
+        pat = f"^{re.escape(name)}$" if exact_names else name
+        rules.append((pat, p))
+    return QuantState(rules=tuple(rules), default=default)
 
 
 def _params_to_dict(p: TRQParams) -> dict:

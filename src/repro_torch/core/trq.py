@@ -56,6 +56,15 @@ class TRQParams:
                             bias=self.bias.to(device))
 
 
+def register_scalars(p: TRQParams, device) -> torch.Tensor:
+    """[delta_r1, bias] as one f32 tensor on ``device``: the register
+    operand the kernels read through a device pointer (no host sync when
+    the registers already live there)."""
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=device).reshape(())
+                        for v in (p.delta_r1, p.bias)])
+
+
 def make_params(delta_r1: float = 1.0, bias: float = 0.0, device=None,
                 **kw) -> TRQParams:
     return TRQParams(

@@ -2,8 +2,15 @@
 
 ``trq_group_mvm``  the per-128-row-group signed-TRQ matmul with fused A/D
                    op count (port of the Pallas ``trq_group_mvm`` kernel).
+``trq_quant``      elementwise TRQ fake-quant and op count (port of the
+                   Pallas ``trq_quant`` kernel); Algorithm 1 scores with it.
+``xbar_mvm``       the bit-exact sliced crossbar MVM on bit-mask planes,
+                   popcount bit-line sums, one conversion each (port of the
+                   Pallas ``xbar_mvm`` kernel); backs ``bit_exact``.
 
 Each kernel directory has ``kernel.py`` (ctypes wrapper of ``csrc/*.cu``),
 ``ref.py`` (plain PyTorch version) and ``ops.py`` (dispatch by device).
 """
 from .trq_group_mvm import trq_group_mvm
+from .trq_quant import trq_quant
+from .xbar_mvm import xbar_mvm

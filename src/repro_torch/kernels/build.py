@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-KERNELS = ("trq_group_mvm",)      # one csrc/<name>.cu each
+KERNELS = ("trq_group_mvm", "trq_quant", "xbar_mvm")  # csrc/<name>.cu
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -1,6 +1,6 @@
 // Signed/unsigned twin-range quantizer (TRQ, paper Eq. 1/7/8) and its SAR
-// comparator-cycle count (Eq. 6), as one device function shared by the
-// port's CUDA kernels.
+// comparator-cycle count (Eq. 6), as device functions shared by the port's
+// CUDA kernels.
 //
 // Every rounding step is spelled out with an IEEE round-to-nearest
 // intrinsic (__fdiv_rn, __fmul_rn, __fadd_rn, __fsub_rn): the floor
@@ -45,26 +45,28 @@ __device__ __forceinline__ float trq_uniform(float x, float delta, int k) {
   return __fmul_rn(__fadd_rn(c, 0.0f), delta);  // -0 -> +0
 }
 
-// Signed TRQ: sign(x) * T(|x|).  Returns the quantized value and stores the
-// conversion's comparator cycles in *ops.
+// Unsigned TRQ T(x) of Eq. 7.  Returns the quantized value and stores the
+// conversion's comparator cycles in *ops: twin mode nu + (n_r1 if x is in
+// R1 = [offset, theta) else n_r2), uniform mode n_r2.
+__device__ __forceinline__ float trq_unsigned(float x, const TrqRegs& r,
+                                              int* ops) {
+  if (r.uniform) {
+    *ops = r.n_r2;
+    return trq_uniform(x, r.delta_r2, r.n_r2);
+  }
+  if ((x >= r.offset) && (x < r.theta)) {
+    *ops = r.nu + r.n_r1;
+    return __fadd_rn(r.offset,
+                     trq_uniform(__fsub_rn(x, r.offset), r.delta_r1, r.n_r1));
+  }
+  *ops = r.nu + r.n_r2;
+  return trq_uniform(x, r.delta_r2, r.n_r2);
+}
+
+// Signed TRQ: sign(x) * T(|x|), counting the cycles of T(|x|).
 __device__ __forceinline__ float trq_signed(float x, const TrqRegs& r,
                                             int* ops) {
-  const float xa = fabsf(x);
-  float t;
-  if (r.uniform) {
-    t = trq_uniform(xa, r.delta_r2, r.n_r2);
-    *ops = r.n_r2;
-  } else {
-    const bool in_r1 = (xa >= r.offset) && (xa < r.theta);
-    if (in_r1) {
-      t = __fadd_rn(r.offset,
-                    trq_uniform(__fsub_rn(xa, r.offset), r.delta_r1, r.n_r1));
-      *ops = r.nu + r.n_r1;
-    } else {
-      t = trq_uniform(xa, r.delta_r2, r.n_r2);
-      *ops = r.nu + r.n_r2;
-    }
-  }
+  const float t = trq_unsigned(fabsf(x), r, ops);
   const float s = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
   return __fmul_rn(s, t);
 }

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.trq import TRQParams
+from ...core.trq import TRQParams, register_scalars
 from ..build import route
 from .kernel import trq_group_mvm_cuda
 from .ref import trq_group_mvm_ref
@@ -17,9 +17,8 @@ from .ref import trq_group_mvm_ref
 
 def pack_scalars(p: TRQParams, grid, device) -> torch.Tensor:
     """[delta_r1, bias, grid] as one f32 device tensor (no host sync)."""
-    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
-                                        device=device).reshape(())
-                        for v in (p.delta_r1, p.bias, grid)])
+    return torch.cat([register_scalars(p, device), torch.as_tensor(
+        grid, dtype=torch.float32, device=device).reshape(1)])
 
 
 def trq_group_mvm_2d(a: torch.Tensor, w: torch.Tensor, scalars, *,

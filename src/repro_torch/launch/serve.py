@@ -6,9 +6,11 @@
 Serves randomly initialised (seeded) weights at the arch's full width on
 ``--device`` (default ``cuda``; ``--smoke --device cpu`` runs the reduced
 config with the kernels' plain versions).  With ``--pim pallas`` every
-projection runs the ``trq_group_mvm`` CUDA kernel.  ``--quant-state``
-installs Algorithm-1 per-layer registers; without it every layer
-auto-ranges the model-wide default.
+projection runs the ``trq_group_mvm`` CUDA kernel; with ``--pim bit_exact``
+the bit-exact sliced crossbar, one A/D conversion per bit-line, through the
+``xbar_mvm`` CUDA kernel.  ``--quant-state`` installs Algorithm-1 per-layer
+registers; without it every layer takes the model-wide default (which
+``pallas`` auto-ranges).
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ Every weight-stationary matmul routes through one contract:
 ``y`` is the (quantized) MVM result, ``ad_ops`` the total A/D operations
 (SAR comparator cycles, Eq. 6) the conversions spent, as a 0-dim int64
 tensor on ``x``'s device (the reference sums in f32, exact below 2^24; a
-full-width prefill exceeds that).  Three backends ship in this slice:
+full-width prefill exceeds that).  Four backends ship:
 
 ``exact``       plain matmul, zero A/D operations.
 ``fake_quant``  per-128-row-group signed TRQ in plain tensor ops.
@@ -15,6 +15,9 @@ full-width prefill exceeds that).  Three backends ship in this slice:
                 reference's name so configs and QuantStates that name
                 ``pallas`` run unchanged): the CUDA kernel on the GPU, its
                 plain version on the CPU.
+``bit_exact``   the full ISAAC sliced datapath (1-bit DAC slices x 1-bit
+                cells, one conversion per bit-line) on PTQ-quantized
+                inputs, through the ``xbar_mvm`` kernel on the GPU.
 
 The port passes the backend name explicitly (``Runtime`` owns it);
 ``use_backend`` remains for code that selects one ambiently.
@@ -27,7 +30,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.trq import TRQParams
-from .crossbar import PimConfig, auto_range_fit, fake_quant_mvm
+from .crossbar import (PimConfig, auto_range_fit, fake_quant_mvm,
+                       offset_encode)
 
 
 class PimOut(NamedTuple):
@@ -84,6 +88,13 @@ def zero_ops(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int64, device=device)
 
 
+def _stable_recip(s) -> torch.Tensor:
+    """1/s rounded to bf16 and widened back to f32: the reference's
+    determinism barrier, kept so the PTQ integers equal its own."""
+    s = torch.as_tensor(s, dtype=torch.float32)
+    return (1.0 / s).to(torch.bfloat16).float()
+
+
 def _dynamic_scales(x, w, a_scale, w_scale, levels: float = 127.0):
     """Max-abs per-tensor scales (None -> dynamic) in the operand's dtype,
     as the reference computes them."""
@@ -136,6 +147,72 @@ def pallas_backend(x, w, trq, *, a_scale=None, w_scale=None,
         trq = auto_range_fit(xf, wf, trq, grid, pim)
     y, ops = trq_group_mvm(xf, wf, trq, grid, 1.0, with_ops=True)
     return PimOut(y.to(x.dtype), ops)
+
+
+def ptq_scale(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """Max-abs symmetric scale of an f32 tensor for ``bits``-bit ints,
+    a multiply by the reciprocal constant (the reference's chain)."""
+    return torch.clamp_min(torch.amax(torch.abs(t)), 1e-6) * \
+        (1.0 / (2 ** (bits - 1) - 1))
+
+
+def ptq_int(t: torch.Tensor, scale, bits: int) -> torch.Tensor:
+    """f32 tensor -> int32 in [-2^(bits-1), 2^(bits-1)): floor(t/s + 0.5)
+    through the ``_stable_recip`` barrier, clipped."""
+    half = 2 ** (bits - 1)
+    r = _stable_recip(scale).to(t.device)
+    return torch.clamp(torch.floor(t * r + 0.5), -half, half - 1).to(
+        torch.int32)
+
+
+def bit_exact_weights(w: torch.Tensor, pim: PimConfig, w_scale=None):
+    """The programming pass of a (K, N) weight: ``(w_scale, w_mask,
+    w_colsum)`` — the frozen scale, the offset-encoded cell planes packed
+    as ``xbar_mvm`` bit masks, and the per-column sum of the int weights
+    for the digital offset correction."""
+    from ..kernels.xbar_mvm import pack_weight_planes
+    wf = w.float()
+    w_s = ptq_scale(wf, pim.k_w) if w_scale is None else \
+        torch.as_tensor(w_scale, dtype=torch.float32, device=w.device)
+    w_int = ptq_int(wf, w_s, pim.k_w)
+    u, _ = offset_encode(w_int, pim.k_w)
+    return w_s, pack_weight_planes(u, pim.k_w), w_int.float().sum(0)
+
+
+def bit_exact_run(x: torch.Tensor, w_mask: torch.Tensor,
+                  w_colsum: torch.Tensor, w_s, trq: Optional[TRQParams],
+                  pim: PimConfig, n: int, a_scale=None) -> PimOut:
+    """The context-stable PTQ chain of the reference's ``bit_exact``
+    backend and prepared path (one function here): f32 activations,
+    reciprocal-multiply scale, ``a_u = a_int + 2^(k_i-1)`` through the
+    sliced crossbar, then the correction ``half_a * colsum(w_int)`` and the
+    rescale.  ``trq`` acts on the raw bit-line grid; None is lossless."""
+    from ..kernels.xbar_mvm import xbar_mvm_packed
+    half_a = 2 ** (pim.k_i - 1)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    a_s = ptq_scale(x2, pim.k_i) if a_scale is None else \
+        torch.as_tensor(a_scale, dtype=torch.float32, device=x.device)
+    a_u = ptq_int(x2, a_s, pim.k_i) + half_a
+    out, ops = xbar_mvm_packed(a_u, w_mask, trq, k_i=pim.k_i, k_w=pim.k_w,
+                               r_adc=pim.r_adc)
+    y = (out - half_a * w_colsum) * (a_s * torch.as_tensor(
+        w_s, dtype=torch.float32, device=x.device))
+    return PimOut(y.reshape(*lead, n).to(x.dtype), ops)
+
+
+@register_backend("bit_exact")
+def bit_exact_backend(x, w, trq, *, a_scale=None, w_scale=None,
+                      pim: PimConfig = PimConfig(), **_) -> PimOut:
+    """Full sliced-datapath audit through the ``xbar_mvm`` kernel:
+    activations and weights PTQ-quantized to k_i/k_w-bit ints (max-abs,
+    symmetric), every bit-line partial sum converted by the (TRQ-)ADC.
+    ``trq`` acts on the raw bit-line grid ([0, xbar] sums: registers that
+    Algorithm 1 calibrated on ``collect_bl_samples``); ``trq=None`` is the
+    lossless datapath; ``auto_range`` and ``delta_grid`` do not apply."""
+    w_s, w_mask, w_colsum = bit_exact_weights(w, pim, w_scale)
+    return bit_exact_run(x, w_mask, w_colsum, w_s, trq, pim, w.shape[1],
+                         a_scale)
 
 
 def pim_mvm(x: torch.Tensor, w: Optional[torch.Tensor] = None,

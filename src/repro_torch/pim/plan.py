@@ -1,5 +1,6 @@
 """Crossbar programming cache: weight-stationary PIM execution plans
-(port of ``repro.pim.plan`` for the exact, fake_quant and pallas backends).
+(port of ``repro.pim.plan`` for the exact, fake_quant, pallas and
+bit_exact backends).
 
 ``prepare_params`` walks a model once — resolving each layer's SAR
 registers through the same param-path names the QuantState rule table uses
@@ -11,9 +12,12 @@ Plan fields: ``w_scale`` (frozen max-|w| half of the ADC grid), ``trq``
 (resolved registers), ``w`` (exact: compute-dtype weights), ``w_g``
 (fake_quant: grouped weights; pallas: the grouped f32 image the auto-range
 pre-fit reads), ``w_f32`` (pallas: the (K, N) f32 image the kernel
-streams).  The kernel masks ragged edges itself, so ``w_f32`` is not padded,
-and when K divides by 128 ``w_g`` is a view of ``w_f32``: one f32 copy of
-each weight instead of two.
+streams), ``w_mask`` (bit_exact: the programmed cell planes, packed as
+``xbar_mvm`` bit masks, 1 byte per weight) and ``w_colsum`` (bit_exact:
+the per-column sum of the int weights for the offset correction).  The
+kernels mask ragged edges themselves, so ``w_f32`` is not padded, and when
+K divides by 128 ``w_g`` is a view of ``w_f32``: one f32 copy of each
+weight instead of two.
 
 Unlike the reference, the port's layers are not stacked along a period
 axis: the plan is keyed by each ``PimLinear``'s module path
@@ -32,8 +36,8 @@ import torch
 
 from ..core.quant_state import quant_state_to_dict
 from ..core.trq import TRQParams
-from .backend import (PimOut, _dynamic_scales, get_backend, grid_scale,
-                      zero_ops)
+from .backend import (PimOut, _dynamic_scales, bit_exact_run,
+                      bit_exact_weights, get_backend, grid_scale, zero_ops)
 from .crossbar import (PimConfig, auto_range_fit_grouped,
                        fake_quant_mvm_grouped, group_activations,
                        group_weights)
@@ -48,6 +52,8 @@ class LayerPlan:
     w: Optional[torch.Tensor] = None        # exact
     w_g: Optional[torch.Tensor] = None      # fake_quant / pallas pre-fit
     w_f32: Optional[torch.Tensor] = None    # pallas
+    w_mask: Optional[torch.Tensor] = None   # bit_exact: (k_w, G, N, 4) int32
+    w_colsum: Optional[torch.Tensor] = None  # bit_exact: (N,) f32
     backend: str = "exact"
     auto_range: bool = False
     delta_grid: float = 1.0
@@ -109,6 +115,10 @@ def prepare_linear(w: torch.Tensor, trq: Optional[TRQParams] = None, *,
         wf = w_cast.float().contiguous()
         w_g = group_weights(wf, pim) if auto_range else None
         return LayerPlan(w_scale=w_scale, w_f32=wf, w_g=w_g, **kw)
+    if backend == "bit_exact":
+        w_scale, w_mask, w_colsum = bit_exact_weights(w_cast, pim)
+        return LayerPlan(w_scale=w_scale, w_mask=w_mask, w_colsum=w_colsum,
+                         **kw)
     raise ValueError(f"backend {backend!r} has no prepared payload; serve "
                      f"it dynamically (plan=False)")
 
@@ -235,3 +245,16 @@ def _prepared_pallas(x, lp: LayerPlan, *, a_scale=None, w_scale=None,
         pack_scalars(trq, grid, x.device), n_r1=trq.n_r1, n_r2=trq.n_r2,
         m=trq.m, nu=trq.nu, mode=trq.mode)
     return PimOut(y.reshape(*lead, lp.n).to(x.dtype), ops)
+
+
+@register_prepared("bit_exact")
+def _prepared_bit_exact(x, lp: LayerPlan, *, a_scale=None, w_scale=None,
+                        **_) -> PimOut:
+    if w_scale is not None:
+        raise ValueError(
+            "bit_exact plans cannot take a per-call w_scale override: the "
+            "programmed cell planes ARE a function of the weight scale; "
+            "re-run prepare_linear/prepare_params (or call the dynamic "
+            "backend) for a pinned grid")
+    return bit_exact_run(x, lp.w_mask, lp.w_colsum, lp.w_scale, lp.trq,
+                         lp.pim, lp.n, a_scale)

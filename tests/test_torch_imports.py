@@ -35,5 +35,35 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 def test_the_walk_sees_the_port():
     assert len(FILES) > 20
-    assert any(p.name == "trq_group_mvm.cu" for p in
-               (ROOT / "src" / "repro_torch").rglob("*.cu"))
+    sources = {p.name for p in (ROOT / "src" / "repro_torch").rglob("*.cu")}
+    assert {"trq_group_mvm.cu", "trq_quant.cu", "xbar_mvm.cu"} <= sources
+    for mod in ("core/calibrate.py", "core/distribution.py",
+                "kernels/trq_quant/ops.py", "kernels/xbar_mvm/ops.py"):
+        assert ROOT / "src" / "repro_torch" / mod in FILES
+
+
+def _c_params(src: str, fn: str):
+    """Parameter types of ``extern "C" int <fn>(...)`` in a CUDA source."""
+    import re
+    m = re.search(r'extern "C" int ' + fn + r'\(([^)]*)\)', src)
+    assert m, f"no extern C {fn} in the source"
+    return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("name", ["trq_group_mvm", "trq_quant", "xbar_mvm"])
+def test_ctypes_bindings_match_the_c_prototypes(name):
+    """The GPU compiler is not available here, so the one interface it
+    cannot check — the ctypes argument list of each launcher — is held
+    to the C prototype: a pointer where the C side takes a pointer, a C
+    int where it takes an int, ``long long`` where it takes one."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import build
+    assert name in build.KERNELS
+    src = (build.CSRC / f"{name}.cu").read_text()
+    params = _c_params(src, f"{name}_launch")
+    kernel = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+    want = [ctypes.c_void_p if "*" in p else
+            ctypes.c_longlong if "long long" in p else ctypes.c_int
+            for p in params]
+    assert list(kernel._ARGTYPES) == want
