@@ -9,22 +9,33 @@ which fails the run on any error:
 
 1. build   every hand-written kernel from ``src/repro_torch/kernels/csrc``
            with nvcc (one process per source, all at once), timed;
-2. K1      ``trq_group_mvm`` against its plain PyTorch version on the card:
-           exact on integer-valued inputs, and on random floats at the
-           main path's shapes within the float bar (rtol=atol=1e-5 on at
-           least 99.9 % of elements, any other element within one coarse
-           quantizer step per 128-row group: a boundary flip from another
-           f32 summation order); times beside the bound: the device time
-           (20 launches, each after an L2 flush, replayed as one CUDA
-           graph, less the flushes) and the time of one call as a caller
-           sees it, host work included;
+2. K1      ``trq_group_mvm`` against its plain PyTorch version on the card,
+           with registers given and auto-ranged (the kernel's fused fit)
+           and with bf16 and f32 weights, at M = 1, 4, 8, 16, 64 on the four
+           projection shapes, ragged 3 x 300 x 130 and 5 x 700 x 136 (the
+           TMA body's zero-filled edges): exact on integer-
+           valued inputs, and on bf16-valued random floats within the
+           float bar (rtol=atol=1e-5 on at least 99.9 % of elements, any
+           other element within one coarse quantizer step per 128-row
+           group: a boundary flip from another f32 summation order), and
+           on the ``w_gate`` of one 2,048-token prefill; times of the whole
+           call (both passes) at M = 4, 16, 64 and that prefill beside the
+           bound (bf16 weights read at 2 bytes each): the device time (20
+           launches, each after an L2 flush, replayed as one CUDA graph,
+           less the flushes), the time of one call as a caller sees it,
+           host work included, and ``torch.matmul`` on the same bf16
+           operands as a yardstick (another function: no quantizer);
 3. serve   full-width llama3.2-3b (28 layers, bf16, seeded random weights)
            on the prepared ``pallas`` datapath through ``runtime.compile``
            and the paged ``ServeEngine``: 8 requests sharing a 48-token
            prefix, 16 new tokens each, greedy.  Launch counts are reset
            just before and read just after; every projection of every
            forward must have launched K1, and the A/D-op total must equal
-           its closed form (every conversion costs nu + n_r = 7 ops);
+           its closed form (every conversion costs nu + n_r = 7 ops); the
+           memory allocated after compile; a ``torch.profiler`` reading of
+           one batch-4 decode step and one 64-token prefill (device time
+           by kernel and by span, device-idle share: a reading, not a
+           check; "not measured" when the profiler sees no device time);
 4. check   one full-width prefill on ``fake_quant`` (the plain tensor
            version of the same math) against ``pallas``: finite logits,
            equal A/D ops, and a relative L2 distance within 3x that of a
@@ -68,12 +79,18 @@ K1, phase 7 for K3, the calibration of phase 8 for K2) and read just
 after; launches that compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile
+
+builds the kernels and runs only the profile of phase 3, on any checkout
+of the port (the parent commit's too, for a before-and-after in one call).
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,9 +99,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ARCH = "llama3.2-3b"
 N_LAYERS = 28
 PROJ_PER_LAYER = 7                 # wq wk wv wo w_gate w_up w_down
-MAIN_SHAPES = [(m, k, n) for m in (4, 64)
-               for k, n in ((3072, 3072), (3072, 1024), (3072, 8192),
-                            (8192, 3072))]
+PROJ_KN = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
+MAIN_SHAPES = [(m, k, n) for m in (4, 64) for k, n in PROJ_KN]
+K1_MS = (1, 4, 8, 16, 64)          # phase 2: rows checked (every m-tile)
+K1_TIMED_MS = (4, 16, 64, 2048)    # decode, prefill_cont, prefill, long
+LONG_PREFILL = (2048, 3072, 8192)  # w_gate of a 2,048-token prefill
+TMA_RAGGED = (5, 700, 136)         # ragged M, K, N on K1's TMA body
 HEADLINE_SHAPE = (4, 3072, 8192)   # decode w_gate / w_up
 PARAM_GRID = [dict(n_r1=4, n_r2=4, m=3, bias=0.0),    # tests/test_kernels.py
               dict(n_r1=2, n_r2=6, m=1, bias=0.0),
@@ -198,11 +218,12 @@ def device_ms(torch, fn, reps: int, flush) -> float:
     return t
 
 
-def bound(m: int, k: int, n: int):
-    """Least time for one call: each input read once and the output written
-    once at the HBM rate, or the 2MKN f32 multiply-adds at the f32 rate,
-    whichever is larger."""
-    byts = 4 * (m * k + k * n + m * n) + 4 * 3
+def bound(m: int, k: int, n: int, w_bytes: int = 2):
+    """Least time for one call: each operand read once as the kernel reads
+    it (f32 activations, ``w_bytes`` a weight: 2 for the bf16 image of the
+    serving path) and the output written once at the HBM rate, or the 2MKN
+    f32 multiply-adds at the f32 rate, whichever is larger."""
+    byts = 4 * m * k + w_bytes * k * n + 4 * m * n + 4 * 3 + 8
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * m * k * n / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -213,6 +234,9 @@ def bound(m: int, k: int, n: int):
 # ---------------------------------------------------------------------------
 
 def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
+    """K1 against its plain version, registers given and auto-ranged, bf16
+    and f32 weights; timed at the main path's shapes (M = 4, 16, 64) and
+    at one long prefill, where the (M, G, N) scratch is largest."""
     from repro_torch.core.trq import make_params
     from repro_torch.kernels.trq_group_mvm import pack_scalars
     from repro_torch.kernels.trq_group_mvm.kernel import trq_group_mvm_cuda
@@ -223,53 +247,70 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    wdtypes = (torch.bfloat16, torch.float32)
 
     def regs_of(p):
         return dict(n_r1=p.n_r1, n_r2=p.n_r2, m=p.m, nu=p.nu, mode=p.mode)
 
     # -- exact: integer operands, power-of-two grid and steps --------------
-    for (m, k, n), rk in [((64, 3072, 1024), dict(n_r1=6, n_r2=6, m=4)),
-                          ((3, 300, 130), dict(n_r1=6, n_r2=6, m=4)),
-                          *[((64, 3072, 1024), r) for r in R1_REGS],
-                          *[((3, 300, 130), r) for r in R1_REGS]]:
-        a = torch.randint(-8, 9, (m, k), generator=gen, device=dev).float()
-        w = torch.randint(-8, 9, (k, n), generator=gen, device=dev).float()
-        p = make_params(delta_r1=16.0, signed=True, device=dev, **rk)
-        s = pack_scalars(p, torch.tensor(0.5, device=dev), dev)
-        y, ops = trq_group_mvm_cuda(a, w, s, **regs_of(p))
-        y_r, ops_r = trq_group_mvm_ref(a, w, s, **regs_of(p))
-        torch.cuda.synchronize()
-        if not torch.equal(y, y_r) or int(ops) != int(ops_r):
-            raise AssertionError(
-                f"K1 not exact on integer inputs {m}x{k}x{n} {rk}: max err "
-                f"{float((y - y_r).abs().max())}, ops {int(ops)} vs "
-                f"{int(ops_r)}")
-        log(f"  exact  {m:>3}x{k:>5}x{n:>5} {rk}: y equal, ops {int(ops)}")
-
-    # -- float: the main path's operands and auto-ranged registers ---------
-    flush = torch.empty(2 * L2_BYTES // 4, device=dev)
-    cases = [(shape, dict(n_r1=6, n_r2=6, m=4)) for shape in MAIN_SHAPES]
-    cases += [((64, 3072, 1024), r) for r in R1_REGS]
-    cases += [((3, 300, 130), dict(n_r1=6, n_r2=6, m=4))]
-    timed = set(MAIN_SHAPES)
+    default = dict(n_r1=6, n_r2=6, m=4)
+    cases = [((m, k, n), default) for m in K1_MS for k, n in PROJ_KN]
+    cases += [((3, 300, 130), default), (TMA_RAGGED, default)]
+    cases += [(shape, r) for shape in ((64, 3072, 1024), (3, 300, 130))
+              for r in R1_REGS]
+    n_exact = 0
     for (m, k, n), rk in cases:
-        # bf16-valued operands, as the serving path widens them
+        a = torch.randint(-8, 9, (m, k), generator=gen, device=dev).float()
+        w_int = torch.randint(-8, 9, (k, n), generator=gen, device=dev)
+        for wdt in wdtypes:
+            w = w_int.to(wdt)                   # exact in bf16 too
+            for auto in (False, True):
+                p = make_params(delta_r1=1.0 if auto else 16.0, signed=True,
+                                device=dev, **rk)
+                s = pack_scalars(p, torch.tensor(0.5, device=dev), dev)
+                kw = dict(regs_of(p), auto_range=auto)
+                y, ops = trq_group_mvm_cuda(a, w, s, **kw)
+                y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(y, y_r) or int(ops) != int(ops_r):
+                    raise AssertionError(
+                        f"K1 not exact on integer inputs {m}x{k}x{n} {rk} "
+                        f"{wdt} auto_range={auto}: max err "
+                        f"{float((y - y_r).abs().max())}, ops {int(ops)} vs "
+                        f"{int(ops_r)}")
+                n_exact += 1
+    log(f"  exact: {n_exact} integer cases (M in {K1_MS} at the four "
+        f"projection shapes, 3x300x130 and {TMA_RAGGED}; bf16 and f32 "
+        f"weights; registers "
+        f"given and auto-ranged): y bitwise equal, ops equal")
+
+    # -- float: bf16-valued operands, registers given and auto-ranged ------
+    flush = torch.empty(2 * L2_BYTES // 4, device=dev)
+    cases = [((m, k, n), default, wdt, auto)
+             for m in K1_MS for k, n in PROJ_KN for wdt in wdtypes
+             for auto in (False, True)]
+    cases += [((64, 3072, 1024), r, torch.bfloat16, True) for r in R1_REGS]
+    cases += [(shape, default, wdt, True) for wdt in wdtypes
+              for shape in ((3, 300, 130), TMA_RAGGED)]
+    cases += [(LONG_PREFILL, default, torch.bfloat16, True)]
+    for (m, k, n), rk, wdt, auto in cases:
         a = torch.randn(m, k, generator=gen, device=dev).bfloat16().float()
         w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
-             ).bfloat16().float()
-        a_s, w_s = _dynamic_scales(a, w, None, None)
+             ).to(torch.bfloat16).to(wdt)
+        a_s, w_s = _dynamic_scales(a, w.float(), None, None)
         grid = grid_scale(a_s, w_s, 1.0, dev)
-        p = auto_range_fit(a, w, make_params(signed=True, device=dev, **rk),
-                           grid)
-        s = pack_scalars(p, grid, dev)
-        y, ops = trq_group_mvm_cuda(a, w, s, **regs_of(p))
-        y_r, ops_r = trq_group_mvm_ref(a, w, s, **regs_of(p))
+        p = make_params(signed=True, device=dev, **rk)
+        fitted = auto_range_fit(a, w.float(), p, grid)
+        s = pack_scalars(p if auto else fitted, grid, dev)
+        kw = dict(regs_of(p), auto_range=auto)
+        y, ops = trq_group_mvm_cuda(a, w, s, **kw)
+        y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
         torch.cuda.synchronize()
         g = -(-k // 128)
         err = (y - y_r).abs()
         close = err <= FLOAT_TOL + FLOAT_TOL * y_r.abs()
         flips = int((~close).sum())
-        step = float(p.delta_r2 * grid)              # one coarse step
+        step = float(fitted.delta_r2 * grid)         # one coarse step
         worst = float(err.max())
         d_ops = abs(int(ops) - int(ops_r))
         ok = (flips <= MAX_FLIP_FRACTION * y.numel()
@@ -279,25 +320,41 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
         rec["max_abs_err"] = max(rec["max_abs_err"], worst)
         rec["flips"] += flips
         rec["elements"] += y.numel()
-        line = (f"  float  {m:>3}x{k:>5}x{n:>5} {rk}: flips {flips}/"
+        wname = "bf16" if wdt == torch.bfloat16 else "f32"
+        line = (f"  float  {m:>3}x{k:>5}x{n:>5} {wname} "
+                f"{'auto ' if auto else 'given'} {rk}: flips {flips}/"
                 f"{y.numel()}, max err {worst:.3e} (coarse step "
                 f"{step:.3e}), ops {int(ops)} vs {int(ops_r)}")
         if not ok:
             raise AssertionError("K1 outside the float bar:" + line)
-        if (m, k, n) in timed and rk["n_r1"] == 6:
-            kw = regs_of(p)
+        if (k, n) in PROJ_KN and m in K1_TIMED_MS and auto and \
+                wdt == torch.bfloat16 and rk is default:
             kern = lambda: trq_group_mvm_cuda(a, w, s, **kw)  # noqa: E731
             ms = device_ms(torch, kern, 20, flush)
             per_call = call_ms(torch, kern, 20, flush)
             plain = device_ms(torch, lambda: trq_group_mvm_ref(a, w, s, **kw),
                               5, flush)
+            a16 = a.bfloat16()
+            mm_ms = device_ms(torch, lambda: torch.matmul(a16, w), 20, flush)
+            # the two passes' device times in one cold call
+            prof = profile_forward(torch, lambda: (flush.zero_(), kern()))
+            passes = {}
+            for t in prof.get("top_kernels", []):
+                hit = re.search(r"trq_group_mvm_\w+(<[^>]*>)?", t["name"])
+                if hit:
+                    passes[hit.group(0)] = t["ms"]
             b, by = bound(m, k, n)
+            b32, _ = bound(m, k, n, w_bytes=4)
             rec["shapes"].append(dict(shape=[m, k, n], ms=ms,
                                       call_ms=per_call, plain_ms=plain,
-                                      bound_ms=b, bound_by=by))
+                                      bound_ms=b, bound_by=by,
+                                      matmul_bf16_ms=mm_ms,
+                                      passes_ms=passes))
             line += (f"; {ms:.4f} ms on the device, {per_call:.4f} ms per "
                      f"call (plain {plain:.4f} ms, bound {b:.4f} ms by "
-                     f"{by})")
+                     f"{by}, {b32:.4f} ms with f32 weights; torch.matmul "
+                     f"on the bf16 operands {mm_ms:.4f} ms); one cold "
+                     f"call's passes {passes}")
         log(line)
 
 
@@ -433,29 +490,157 @@ def forward_times(torch, rt, prompt) -> dict:
                                                         max_len=256)))
 
 
+@contextlib.contextmanager
+def labelled_spans(torch):
+    """Wrap the port's projection, auto-range pre-fit and attention
+    functions in ``torch.profiler.record_function`` spans, so a trace can
+    attribute device time to them (the package itself carries no spans).
+    A function the package does not have (the pre-fit after it was folded
+    into K1) is left out."""
+    from repro_torch.models import attention, layers
+    from repro_torch.pim import plan
+    targets = [(layers, "pim_linear", "projections"),
+               (plan, "auto_range_fit_grouped", "pre-fit"),
+               (attention, "full_attention", "attention"),
+               (attention, "chunked_attention", "attention"),
+               (attention, "decode_attention", "attention"),
+               (attention, "_scatter_time", "attention")]
+    saved = []
+
+    def wrap(fn, label):
+        def inner(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return inner
+    for mod, name, label in targets:
+        fn = getattr(mod, name, None)
+        if fn is not None:
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrap(fn, label))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _device_us(e) -> float:
+    """Device time of a CPU event and its children (the attribute's name
+    changed across PyTorch versions)."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        v = getattr(e, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def profile_forward(torch, fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (warmed first): the host
+    clock of the call, the device's busy time (the union of its kernel and
+    memset intervals) and idle share, device time by span (``K1`` from its
+    kernels' names; the labelled spans of :func:`labelled_spans`) and the
+    ten kernels that took longest.  ``measured`` is False when the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with labelled_spans(torch):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    labels = ("projections", "pre-fit", "attention")
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name not in labels             # the spans' device mirrors
+           and not getattr(e, "is_user_annotation", False)]
+    if not dev:
+        return dict(measured=False, wall_ms=wall_ms)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, float("-inf")
+    for s, t in spans:
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    by_name: dict = {}
+    for e in dev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    k1 = [v for k, v in by_name.items() if "trq_group_mvm" in k]
+    out = dict(measured=True, wall_ms=wall_ms, device_busy_ms=busy / 1e3,
+               device_idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms),
+               k1_ms=sum(us for _, us in k1) / 1e3,
+               k1_kernels=sum(n for n, _ in k1))
+    for label in labels:
+        out[f"{label}_ms"] = sum(
+            _device_us(e) for e in events
+            if e.device_type == DeviceType.CPU and e.name == label) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    out["top_kernels"] = [dict(name=k[:90], count=n, ms=us / 1e3)
+                          for k, (n, us) in top]
+    return out
+
+
+def profile_forwards(torch, rt, prompt) -> dict:
+    """The profile of one batch-4 decode step and one 64-token prefill."""
+    import numpy as np
+    dec_cache = rt.init_cache(TRACE_BATCH, 256)
+    dec_toks = np.zeros((TRACE_BATCH, 1), np.int32)
+    out = {}
+    for key, fn in (("decode_step", lambda: rt.decode(dec_toks, dec_cache)),
+                    ("prefill64", lambda: rt.prefill(prompt[None],
+                                                     max_len=256))):
+        p = out[key] = profile_forward(torch, fn)
+        if not p["measured"]:
+            log(f"  profile of one {key}: device time not measured (the "
+                f"profiler saw no CUDA activity); host {p['wall_ms']:.1f} "
+                f"ms")
+            continue
+        log(f"  profile of one {key}: host {p['wall_ms']:.1f} ms, device "
+            f"busy {p['device_busy_ms']:.2f} ms (idle share "
+            f"{p['device_idle_share']:.3f}); K1 {p['k1_ms']:.2f} ms in "
+            f"{p['k1_kernels']} kernels, projections "
+            f"{p['projections_ms']:.2f} ms, pre-fit {p['pre-fit_ms']:.2f} "
+            f"ms, attention {p['attention_ms']:.2f} ms")
+        for t in p["top_kernels"]:
+            log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
+    return out
+
+
 def rel_l2(x, y) -> float:
     return float((x - y).norm() / y.norm())
 
 
-def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
+def compile_pallas(torch, cfg, device: str = "cuda"):
+    """Seeded full-width weights on the card, compiled on the prepared
+    ``pallas`` datapath and warmed; logs the memory it holds."""
     from repro_torch import runtime
-    from repro_torch.kernels.trq_group_mvm import kernel as k1
     from repro_torch.models.registry import init
-    import numpy as np
-
-    t = cfg.trq
-    assert (t.n_r1, t.n_r2, t.auto_range) == (6, 6, True)
     t0 = time.perf_counter()
     state = init(cfg, seed=0, device=device)
     rt = runtime.compile(cfg, state, device=device)
     del state
     torch.cuda.synchronize()
+    gib = torch.cuda.memory_allocated() / 2 ** 30
     log(f"  compiled {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, {len(rt.plan)} layer "
         f"plans on {rt.backend!r} in {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        f"{gib:.2f} GiB allocated")
     warm(rt)
     torch.cuda.synchronize()
+    return rt, gib
+
+
+def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    import numpy as np
+
+    t = cfg.trq
+    assert (t.n_r1, t.n_r2, t.auto_range) == (6, 6, True)
+    rt, gib = compile_pallas(torch, cfg, device)
 
     run = run_trace(torch, rt, cfg, k1, "K1")
     rec["launches"] = run["launches"]
@@ -468,21 +653,16 @@ def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     log(f"  A/D ops equal the closed form {want} ({run['rows']} token rows)")
     serve = {k: run[k] for k in ("tokens_per_s", "mean_ttft_ms",
                                  "total_ad_ops", "forwards", "wall_s")}
+    serve["gib_after_compile"] = gib
     prompts = trace_prompts(cfg)
 
-    # one forward of each kind, host clock around a synchronised call; K1's
-    # share from phase 2's per-call times (M=4 decode, M=64 prefill)
+    # one forward of each kind, host clock around a synchronised call, then
+    # the profiler's split of the same two forwards
     serve.update(forward_times(torch, rt, prompts[0]))
-    per_call = {tuple(x["shape"]): x["ms"] for x in rec["shapes"]}
-    for key, m in (("decode_step_k1_ms", 4), ("prefill64_k1_ms", 64)):
-        if per_call:
-            serve[key] = cfg.n_layers * sum(
-                per_call[(m, k, n)] for k, n in projection_shapes(cfg))
     log(f"  one decode step (batch {TRACE_BATCH}) "
         f"{serve['decode_step_ms']:.1f} ms, one 64-token prefill "
-        f"{serve['prefill64_ms']:.1f} ms; K1's part from phase 2: "
-        f"{serve.get('decode_step_k1_ms', 0):.1f} ms and "
-        f"{serve.get('prefill64_k1_ms', 0):.1f} ms")
+        f"{serve['prefill64_ms']:.1f} ms")
+    serve["profile"] = profile_forwards(torch, rt, prompts[0])
 
     # -- phase 4: fake_quant (plain tensor ops) against pallas (K1) --------
     # Two exact implementations of one quantized network differ only where
@@ -900,7 +1080,15 @@ def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
                 forwards=run["forwards"], k3_launches=run["launches"])
 
 
-def main() -> int:
+def pallas_config():
+    from repro_torch.models.registry import get_config
+    cfg = get_config(ARCH).replace(param_dtype="bfloat16",
+                                   pim_backend="pallas", remat="none")
+    assert cfg.n_layers == N_LAYERS and cfg.d_model == 3072
+    return cfg
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -923,6 +1111,22 @@ def main() -> int:
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"  {name}: {ln.strip()}")
+    if argv == ["--profile"]:
+        # the profile of phase 3 alone, on any checkout of the port
+        log("profile: full-width llama3.2-3b on pallas")
+        cfg = pallas_config()
+        rt, gib = compile_pallas(torch, cfg)
+        times = forward_times(torch, rt, trace_prompts(cfg)[0])
+        log(f"  one decode step (batch {TRACE_BATCH}) "
+            f"{times['decode_step_ms']:.1f} ms, one 64-token prefill "
+            f"{times['prefill64_ms']:.1f} ms")
+        prof = profile_forwards(torch, rt, trace_prompts(cfg)[0])
+        log(json.dumps({"profile": prof, "gib_after_compile": gib, **times}))
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}; the only one is "
+              f"--profile", file=sys.stderr)
+        return 2
 
     rec = dict(name="trq_group_mvm", route="cuda",
                source="src/repro_torch/kernels/csrc/trq_group_mvm.cu",
@@ -939,10 +1143,7 @@ def main() -> int:
     log("phase 2: trq_group_mvm against its plain version")
     k1_phase(torch, rec)
     log("phase 3: serve full-width llama3.2-3b on pallas")
-    from repro_torch.models.registry import get_config
-    cfg = get_config(ARCH).replace(param_dtype="bfloat16",
-                                   pim_backend="pallas", remat="none")
-    assert cfg.n_layers == N_LAYERS and cfg.d_model == 3072
+    cfg = pallas_config()
     serve = serve_phase(torch, rec, cfg)
     torch.cuda.empty_cache()
     log("phase 5: trq_quant against its plain version")
@@ -976,4 +1177,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

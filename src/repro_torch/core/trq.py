@@ -65,6 +65,20 @@ def register_scalars(p: TRQParams, device) -> torch.Tensor:
                         for v in (p.delta_r1, p.bias)])
 
 
+def auto_range_delta(delta_r1, vmax, grid, reach: int) -> torch.Tensor:
+    """The auto-range fine step: ``delta_r1`` scaled so that the coarse
+    range ``2**reach * delta_r1`` (``reach = n_r2 + m``) covers ``vmax``
+    grid units.  The IEEE steps of the reference's ``auto_range_fit``, which
+    the K1 kernel repeats: a correctly rounded division by ``grid``, an
+    exact one by ``2**reach``, ``max(., 1e-6)``, one multiply.  Stays on
+    the device: no host sync."""
+    span = vmax / torch.as_tensor(grid, dtype=torch.float32,
+                                  device=vmax.device)
+    scale = torch.clamp_min(span / 2.0 ** reach, 1e-6)
+    return torch.as_tensor(delta_r1, dtype=torch.float32,
+                           device=scale.device) * scale
+
+
 def make_params(delta_r1: float = 1.0, bias: float = 0.0, device=None,
                 **kw) -> TRQParams:
     return TRQParams(

@@ -1,10 +1,12 @@
 """ctypes wrapper of the CUDA kernel ``csrc/trq_group_mvm.cu``.
 
 Replaces ``repro/kernels/trq_group_mvm/kernel.py::trq_group_mvm_tiles``
-(see the source note in the ``.cu`` file for its bound and design).  The
-wrapper checks device, dtype, shape and contiguity, allocates the outputs,
-launches on PyTorch's current stream without synchronising, and raises if
-the launch was refused.  ``LAUNCHES`` counts the launches.
+and, with ``auto_range``, the pre-fit its callers ran before it (see the
+source note in the ``.cu`` file for its bound and design).  The wrapper
+checks device, dtype, shape and contiguity, allocates the outputs and the
+(M, G, N) partial-sum scratch, launches both passes on PyTorch's current
+stream without synchronising, and raises if a launch was refused.
+``LAUNCHES`` counts the calls (one per call, which covers both passes).
 """
 from __future__ import annotations
 
@@ -13,10 +15,14 @@ import ctypes
 import torch
 
 from ..build import load
+from .ref import XBAR
 
 LAUNCHES = 0
 _MODES = {"twin": 0, "uniform": 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
+STATS = 17                      # kStats of the source: int64 words
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -28,21 +34,28 @@ def _lib():
     return fn
 
 
+def _check(name: str, t: torch.Tensor, dtypes, device) -> None:
+    if not t.is_cuda or t.dtype not in dtypes or not t.is_contiguous():
+        want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"trq_group_mvm: {name} must be a contiguous {want} "
+                         f"CUDA tensor, got {t.dtype} on {t.device}")
+    if t.device != device:
+        raise ValueError("trq_group_mvm: operands on different devices")
+
+
 def trq_group_mvm_cuda(a: torch.Tensor, w: torch.Tensor,
                        scalars: torch.Tensor, *, n_r1: int, n_r2: int,
-                       m: int, nu: int = 1, mode: str = "twin"):
-    """a: (M, K) f32; w: (K, N) f32; scalars: [delta_r1, bias, grid] f32,
-    all contiguous on one CUDA device.  Returns (y (M, N) f32, ops 0-dim
-    int64: the comparator cycles of the valid region)."""
+                       m: int, nu: int = 1, mode: str = "twin",
+                       auto_range: bool = False):
+    """a: (M, K) f32; w: (K, N) bf16 or f32; scalars: [delta_r1, bias,
+    grid] f32, all contiguous on one CUDA device.  With ``auto_range``
+    the kernel scales ``delta_r1`` from the call's own max |partial sum|.
+    Returns (y (M, N) f32, ops 0-dim int64: the comparator cycles of the
+    valid region)."""
     global LAUNCHES
-    for name, t in (("a", a), ("w", w), ("scalars", scalars)):
-        if not t.is_cuda or t.dtype != torch.float32 or \
-                not t.is_contiguous():
-            raise ValueError(f"trq_group_mvm: {name} must be a contiguous "
-                             f"float32 CUDA tensor, got {t.dtype} on "
-                             f"{t.device}")
-        if t.device != a.device:
-            raise ValueError("trq_group_mvm: operands on different devices")
+    _check("a", a, (torch.float32,), a.device)
+    _check("w", w, WEIGHT_DTYPES, a.device)
+    _check("scalars", scalars, (torch.float32,), a.device)
     if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"trq_group_mvm: shapes {tuple(a.shape)} x "
                          f"{tuple(w.shape)} do not contract")
@@ -55,17 +68,24 @@ def trq_group_mvm_cuda(a: torch.Tensor, w: torch.Tensor,
         raise ValueError("trq_group_mvm: register widths out of range")
     mm, k = a.shape
     n = w.shape[1]
+    g = -(-k // XBAR)
+    if g > 65535 or -(-n // 128) > 65535 or mm * -(-n // 32) >= 2 ** 31:
+        raise ValueError(f"trq_group_mvm: {k} x {n} exceeds the launch grid")
+    if mm == 0 or n == 0 or k == 0:
+        return (torch.zeros((mm, n), dtype=torch.float32, device=a.device),
+                torch.zeros((), dtype=torch.int64, device=a.device))
     y = torch.empty((mm, n), dtype=torch.float32, device=a.device)
-    ops = torch.zeros((), dtype=torch.int64, device=a.device)
-    if mm == 0 or n == 0:
-        return y, ops
+    # [op total, 32 auto-range maximum cells]: zeroed by the launcher
+    stats = torch.empty(STATS, dtype=torch.int64, device=a.device)
+    part = torch.empty((mm, g, n), dtype=torch.float32, device=a.device)
     fn = _lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), w.data_ptr(), scalars.data_ptr(),
-                 y.data_ptr(), ops.data_ptr(), mm, k, n, n_r1, n_r2, m, nu,
-                 _MODES[mode], stream)
+        err = fn(a.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
+                 scalars.data_ptr(), part.data_ptr(), y.data_ptr(),
+                 stats.data_ptr(), mm, k, n, n_r1, n_r2, m, nu, _MODES[mode],
+                 int(auto_range), stream)
     if err != 0:
         raise RuntimeError(f"trq_group_mvm launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return y, ops
+    return y, stats[0]

@@ -8,15 +8,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ...core.trq import TRQParams, trq_ad_ops, trq_quant
+from ...core.trq import TRQParams, auto_range_delta, trq_ad_ops, trq_quant
 
 XBAR = 128
 
 
 def trq_group_mvm_ref(a: torch.Tensor, w: torch.Tensor,
                       scalars: torch.Tensor, *, n_r1: int, n_r2: int, m: int,
-                      nu: int = 1, mode: str = "twin"):
-    """a: (M, K) f32; w: (K, N) f32; scalars: [delta_r1, bias, grid] f32.
+                      nu: int = 1, mode: str = "twin",
+                      auto_range: bool = False):
+    """a: (M, K) f32; w: (K, N) bf16 or f32 (widened to f32, exactly);
+    scalars: [delta_r1, bias, grid] f32.  With ``auto_range`` the partial
+    sums' max |psum| scales ``delta_r1`` first (:func:`auto_range_delta`).
     Returns (y (M, N) f32, ops 0-dim int64 over the valid region)."""
     mm, k = a.shape
     n = w.shape[1]
@@ -25,12 +28,16 @@ def trq_group_mvm_ref(a: torch.Tensor, w: torch.Tensor,
     a_g = F.pad(a.float(), (0, pad)).reshape(mm, g, XBAR)
     w_g = F.pad(w.float(), (0, 0, 0, pad)).reshape(g, XBAR, n)
     psum = torch.einsum("mgx,gxn->mgn", a_g, w_g)       # (M, G, N) f32
-    p = TRQParams(delta_r1=scalars[0], bias=scalars[1], n_r1=n_r1,
-                  n_r2=n_r2, m=m, nu=nu, mode=mode, signed=True)
     grid = scalars[2]
+    delta_r1 = scalars[0]
+    if auto_range:
+        delta_r1 = auto_range_delta(delta_r1, torch.amax(torch.abs(psum)),
+                                    grid, n_r2 + m)
+    p = TRQParams(delta_r1=delta_r1, bias=scalars[1], n_r1=n_r1,
+                  n_r2=n_r2, m=m, nu=nu, mode=mode, signed=True)
     scaled = psum / grid
     q = trq_quant(scaled, p) * grid
-    # accumulate the groups in order, as the kernel's group loop does
+    # accumulate the groups in order, as the kernel's second pass does
     y = torch.zeros((mm, n), dtype=torch.float32, device=a.device)
     for gi in range(g):
         y = y + q[:, gi]

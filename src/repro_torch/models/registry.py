@@ -15,6 +15,7 @@ import importlib
 import torch
 
 from ..configs.base import ModelConfig
+from ..device import resolve_device
 from .layers import Embed, PimLinear, RMSNorm, pdtype
 
 ARCHS = ("llama3.2-3b",)
@@ -38,8 +39,11 @@ def build_model(cfg: ModelConfig, device="meta"):
     return LM(cfg, device=device)
 
 
-def init(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
-    """Seeded random weights as a state dict on ``device``."""
+def init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Seeded random weights as a state dict on ``device``: the card by
+    default, as every entry point of the port (raises without one unless
+    ``device="cpu"`` is given)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dt = pdtype(cfg)

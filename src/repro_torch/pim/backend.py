@@ -30,8 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.trq import TRQParams
-from .crossbar import (PimConfig, auto_range_fit, fake_quant_mvm,
-                       offset_encode)
+from .crossbar import PimConfig, fake_quant_mvm, offset_encode
 
 
 class PimOut(NamedTuple):
@@ -133,19 +132,16 @@ def fake_quant_backend(x, w, trq, *, a_scale=None, w_scale=None,
 @register_backend("pallas")
 def pallas_backend(x, w, trq, *, a_scale=None, w_scale=None,
                    delta_grid: float = 1.0, auto_range: bool = False,
-                   pim: PimConfig = PimConfig(), **_) -> PimOut:
+                   **_) -> PimOut:
     """Inference datapath through the ``trq_group_mvm`` kernel (not
-    differentiable: train with ``fake_quant``)."""
+    differentiable: train with ``fake_quant``).  The kernel reads ``w`` as
+    given (bf16 or f32) and, with ``auto_range``, fits ``delta_r1`` to its
+    own partial sums: one read of the weights per call."""
     from ..kernels.trq_group_mvm import trq_group_mvm
     a_s, w_s = _dynamic_scales(x, w, a_scale, w_scale)
     grid = grid_scale(a_s, w_s, delta_grid, x.device)
-    xf = x.float()
-    wf = w.float()
-    trq = trq.to(x.device)
-    if auto_range:
-        # the pre-fit runs outside the kernel, as in the reference
-        trq = auto_range_fit(xf, wf, trq, grid, pim)
-    y, ops = trq_group_mvm(xf, wf, trq, grid, 1.0, with_ops=True)
+    y, ops = trq_group_mvm(x, w, trq.to(x.device), grid, 1.0, with_ops=True,
+                           auto_range=auto_range)
     return PimOut(y.to(x.dtype), ops)
 
 

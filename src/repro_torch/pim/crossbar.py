@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.trq import TRQParams, trq_ad_ops, trq_quant
+from ..core.trq import TRQParams, auto_range_delta, trq_ad_ops, trq_quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,12 +159,10 @@ def auto_range_fit_grouped(a_g, w_g, trq: TRQParams, grid) -> TRQParams:
     """:func:`auto_range_fit` on pre-grouped operands.  Stays on the
     device: no host sync."""
     vmax = torch.amax(torch.abs(_group_psums(a_g, w_g)))
-    span = vmax / torch.as_tensor(grid, dtype=torch.float32,
-                                  device=vmax.device)
-    reach = 2.0 ** (trq.n_r2 + trq.m)
-    scale = torch.clamp_min(span / reach, 1e-6)
-    return trq.replace(delta_r1=trq.delta_r1.to(scale.device) * scale,
-                       bias=trq.bias.to(scale.device))
+    return trq.replace(
+        delta_r1=auto_range_delta(trq.delta_r1, vmax, grid,
+                                  trq.n_r2 + trq.m),
+        bias=trq.bias.to(vmax.device))
 
 
 def auto_range_fit(a, w, trq: TRQParams, grid,

@@ -9,15 +9,15 @@ registers through the same param-path names the QuantState rule table uses
 bitwise identical to its dynamic call but touches only activations.
 
 Plan fields: ``w_scale`` (frozen max-|w| half of the ADC grid), ``trq``
-(resolved registers), ``w`` (exact: compute-dtype weights), ``w_g``
-(fake_quant: grouped weights; pallas: the grouped f32 image the auto-range
-pre-fit reads), ``w_f32`` (pallas: the (K, N) f32 image the kernel
-streams), ``w_mask`` (bit_exact: the programmed cell planes, packed as
-``xbar_mvm`` bit masks, 1 byte per weight) and ``w_colsum`` (bit_exact:
-the per-column sum of the int weights for the offset correction).  The
-kernels mask ragged edges themselves, so ``w_f32`` is not padded, and when
-K divides by 128 ``w_g`` is a view of ``w_f32``: one f32 copy of each
-weight instead of two.
+(resolved registers), ``w`` (exact and pallas: the compute-dtype weights,
+the model's own tensor when it already has that dtype — the K1 kernel
+streams bf16 weights and widens them in registers, and fits the auto-range
+register in the same pass, so the plan holds no f32 image and no grouped
+copy), ``w_g`` (fake_quant: grouped weights), ``w_mask`` (bit_exact: the
+programmed cell planes, packed as ``xbar_mvm`` bit masks, 1 byte per
+weight) and ``w_colsum`` (bit_exact: the per-column sum of the int weights
+for the offset correction).  The kernels mask ragged edges themselves, so
+nothing is padded.
 
 Unlike the reference, the port's layers are not stacked along a period
 axis: the plan is keyed by each ``PimLinear``'s module path
@@ -38,8 +38,7 @@ from ..core.quant_state import quant_state_to_dict
 from ..core.trq import TRQParams
 from .backend import (PimOut, _dynamic_scales, bit_exact_run,
                       bit_exact_weights, get_backend, grid_scale, zero_ops)
-from .crossbar import (PimConfig, auto_range_fit_grouped,
-                       fake_quant_mvm_grouped, group_activations,
+from .crossbar import (PimConfig, fake_quant_mvm_grouped, group_activations,
                        group_weights)
 
 
@@ -49,9 +48,8 @@ class LayerPlan:
 
     w_scale: Optional[torch.Tensor] = None
     trq: Optional[TRQParams] = None
-    w: Optional[torch.Tensor] = None        # exact
-    w_g: Optional[torch.Tensor] = None      # fake_quant / pallas pre-fit
-    w_f32: Optional[torch.Tensor] = None    # pallas
+    w: Optional[torch.Tensor] = None        # exact / pallas
+    w_g: Optional[torch.Tensor] = None      # fake_quant
     w_mask: Optional[torch.Tensor] = None   # bit_exact: (k_w, G, N, 4) int32
     w_colsum: Optional[torch.Tensor] = None  # bit_exact: (N,) f32
     backend: str = "exact"
@@ -112,9 +110,8 @@ def prepare_linear(w: torch.Tensor, trq: Optional[TRQParams] = None, *,
         if backend == "fake_quant":
             return LayerPlan(w_scale=w_scale, w_g=group_weights(w_cast, pim),
                              **kw)
-        wf = w_cast.float().contiguous()
-        w_g = group_weights(wf, pim) if auto_range else None
-        return LayerPlan(w_scale=w_scale, w_f32=wf, w_g=w_g, **kw)
+        from ..kernels.trq_group_mvm.ops import weight_operand
+        return LayerPlan(w_scale=w_scale, w=weight_operand(w_cast), **kw)
     if backend == "bit_exact":
         w_scale, w_mask, w_colsum = bit_exact_weights(w_cast, pim)
         return LayerPlan(w_scale=w_scale, w_mask=w_mask, w_colsum=w_colsum,
@@ -234,17 +231,12 @@ def _prepared_pallas(x, lp: LayerPlan, *, a_scale=None, w_scale=None,
                                w_scale if w_scale is not None
                                else lp.w_scale)
     grid = grid_scale(a_s, w_s, lp.delta_grid, x.device)
-    lead = x.shape[:-1]
-    xf = x.float()
     trq = lp.trq
-    if lp.auto_range:
-        trq = auto_range_fit_grouped(group_activations(xf, lp.pim), lp.w_g,
-                                     trq, grid)
     y, ops = trq_group_mvm_2d(
-        xf.reshape(-1, lp.k).contiguous(), lp.w_f32,
+        x.reshape(-1, lp.k).float().contiguous(), lp.w,
         pack_scalars(trq, grid, x.device), n_r1=trq.n_r1, n_r2=trq.n_r2,
-        m=trq.m, nu=trq.nu, mode=trq.mode)
-    return PimOut(y.reshape(*lead, lp.n).to(x.dtype), ops)
+        m=trq.m, nu=trq.nu, mode=trq.mode, auto_range=lp.auto_range)
+    return PimOut(y.reshape(*x.shape[:-1], lp.n).to(x.dtype), ops)
 
 
 @register_prepared("bit_exact")

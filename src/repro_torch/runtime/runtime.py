@@ -19,6 +19,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.energy import adc_energy_pj
 from ..core.quant_state import QuantState
+from ..device import resolve_device
 from ..models.layers import PimContext, pim_linear
 from ..models.lm import LM, init_cache
 from ..models.registry import build_model
@@ -41,17 +42,6 @@ class AdOpsReport(NamedTuple):
     @property
     def ad_energy_pj(self) -> float:
         return adc_energy_pj(self.total())
-
-
-def resolve_device(device=None) -> torch.device:
-    """The entry points' device: the caller's, else ``cuda``.  Without a
-    GPU an explicit ``device="cpu"`` is required: there is no silent CPU
-    fallback."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to "
-                           "run the plain (non-kernel) versions on the CPU")
-    return device
 
 
 class Runtime:

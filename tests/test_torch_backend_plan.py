@@ -97,28 +97,32 @@ def test_bf16_compute_prepared_bitwise_and_close_to_reference(rng, backend):
     assert float(ot) == float(oj)
 
 
-def test_pallas_plan_holds_one_f32_copy_when_k_is_aligned(rng):
-    """K a multiple of 128: the grouped image the auto-range pre-fit reads
-    is a view of the f32 image the kernel streams."""
-    w = torch.from_numpy(rng.normal(0, 1, (256, 128)).astype(np.float32))
-    lp = tplan.prepare_linear(w.to(torch.bfloat16), _trq("torch"),
-                              backend="pallas", auto_range=True)
-    assert lp.w_f32.dtype == torch.float32 and lp.w_f32.is_contiguous()
-    assert lp.w_g.shape == (2, 128, 128)
-    assert lp.w_g.data_ptr() == lp.w_f32.data_ptr()
+def test_pallas_plan_holds_the_compute_dtype_image(rng):
+    """The kernel streams the compute-dtype weights (widening bf16 in
+    registers) and fits the auto-range register from its own partial sums,
+    so the pallas plan holds the weight itself: the same storage as the
+    bf16 tensor, no f32 image, no grouped copy."""
+    w = torch.from_numpy(rng.normal(0, 1, (256, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    for auto in (True, False):
+        lp = tplan.prepare_linear(w, _trq("torch"), backend="pallas",
+                                  auto_range=auto, dtype=torch.bfloat16)
+        assert lp.w is w and lp.w_g is None
+    assert not hasattr(lp, "w_f32")
     ragged = tplan.prepare_linear(w[:200], _trq("torch"), backend="pallas",
-                                  auto_range=True)
-    assert ragged.w_f32.shape == (200, 128)          # the kernel masks K
-    assert ragged.w_g.shape == (2, 128, 128)
-    calibrated = tplan.prepare_linear(w, _trq("torch"), backend="pallas")
-    assert calibrated.w_g is None
+                                  auto_range=True, dtype=torch.bfloat16)
+    assert ragged.w.shape == (200, 128)              # the kernel masks K
+    assert ragged.w.data_ptr() == w.data_ptr()
+    f32 = tplan.prepare_linear(w, _trq("torch"), backend="pallas",
+                               auto_range=True, dtype=torch.float32)
+    assert f32.w.dtype == torch.float32 and torch.equal(f32.w, w.float())
 
 
 def test_model_plan_names_and_stale_guard():
     cfg = get_config("llama3.2-3b", smoke=True).replace(
         pim_backend="pallas", dtype="float32")
     model = build_model(cfg, device="cpu")
-    model.load_state_dict(tinit(cfg, seed=0), assign=True)
+    model.load_state_dict(tinit(cfg, seed=0, device="cpu"), assign=True)
     plan = tplan.prepare_params(model, cfg)
     assert len(plan) == 7 * cfg.n_layers
     assert plan.get("layers.1.mlp.w_down").n == cfg.d_model
@@ -185,7 +189,7 @@ def test_quant_state_lands_in_plan_and_disables_auto_range():
     cfg = get_config("llama3.2-3b", smoke=True).replace(
         pim_backend="pallas", dtype="float32")
     model = build_model(cfg, device="cpu")
-    model.load_state_dict(tinit(cfg, seed=0), assign=True)
+    model.load_state_dict(tinit(cfg, seed=0, device="cpu"), assign=True)
     qs = tqs.QuantState(rules=(("attn/wq", tmake(delta_r1=0.125, n_r1=3,
                                                  n_r2=5, m=2,
                                                  signed=True)),))

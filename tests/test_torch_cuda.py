@@ -56,6 +56,36 @@ def test_kernel_exact_on_integer_inputs(card, m, k, n, rk, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 256, 136], ids=["n300", "n256", "n136"])
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("auto_range", [False, True], ids=["given", "auto"])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 64])
+def test_kernel_exact_with_auto_range_and_bf16_weights(card, m, auto_range,
+                                                       wdtype, n):
+    """Integer operands (exact in bf16 too): kernel and plain version agree
+    bit for bit with the registers given or auto-ranged from the call's own
+    maximum, at every m-tile height the kernel picks, with K ragged and N
+    ragged (300: element loads), aligned (256) or ragged in whole 16-byte
+    rows (136); bf16 at M <= 16 with aligned rows takes the TMA body."""
+    rng = np.random.default_rng(m * 1000 + n)
+    a = torch.from_numpy(rng.integers(-8, 9, (m, 700)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-8, 9, (700, n)).astype(np.float32))
+    p = make_params(delta_r1=1.0 if auto_range else 16.0, n_r1=2, n_r2=6,
+                    m=1, signed=True, device=card)
+    s = pack_scalars(p, torch.tensor(0.5), card)
+    kw = dict(_regs(p), auto_range=auto_range)
+    a, w = a.to(card), w.to(card, wdtype)
+    before = k1.LAUNCHES
+    y, ops = k1.trq_group_mvm_cuda(a, w, s, **kw)
+    assert k1.LAUNCHES == before + 1
+    y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_r)
+    assert int(ops) == int(ops_r)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(card):
     s = torch.zeros(3, device=card)
     with pytest.raises(ValueError, match="contiguous float32 CUDA"):
@@ -65,6 +95,10 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="do not contract"):
         k1.trq_group_mvm_cuda(torch.zeros(2, 128, device=card),
                               torch.zeros(64, 4, device=card), s,
+                              n_r1=4, n_r2=4, m=3)
+    with pytest.raises(ValueError, match="bfloat16 or float32 CUDA"):
+        k1.trq_group_mvm_cuda(torch.zeros(2, 128, device=card),
+                              torch.zeros(128, 4, device=card).half(), s,
                               n_r1=4, n_r2=4, m=3)
 
 

@@ -19,9 +19,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.trq import make_params as jmake  # noqa: E402
 from repro.kernels import trq_group_mvm_pallas  # noqa: E402
+from repro.pim.backend import pallas_backend as jpallas  # noqa: E402
+from repro.pim.crossbar import auto_range_fit_grouped as jfit  # noqa: E402
 from repro.pim.crossbar import fake_quant_mvm as jfake  # noqa: E402
 from repro_torch.core.trq import make_params as tmake  # noqa: E402
-from repro_torch.core.trq import trq_ad_ops  # noqa: E402
+from repro_torch.core.trq import auto_range_delta, trq_ad_ops  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.trq_group_mvm import (pack_scalars,  # noqa: E402
                                                trq_group_mvm,
@@ -30,6 +32,10 @@ from repro_torch.kernels.trq_group_mvm.kernel import \
     trq_group_mvm_cuda  # noqa: E402
 from repro_torch.kernels.trq_group_mvm.ref import \
     trq_group_mvm_ref  # noqa: E402
+from repro_torch.pim.backend import pallas_backend as tpallas  # noqa: E402
+from repro_torch.pim.crossbar import auto_range_fit as tfit  # noqa: E402
+from repro_torch.pim.crossbar import auto_range_fit_grouped \
+    as tfit_grouped  # noqa: E402
 from repro_torch.pim.crossbar import fake_quant_mvm as tfake  # noqa: E402
 
 PARAM_GRID = [
@@ -150,6 +156,83 @@ def test_fake_quant_mvm_matches_reference(rng, auto_range):
     assert int(ot) == float(oj)
 
 
+@pytest.mark.parametrize("kind", ["integer", "float"])
+@pytest.mark.parametrize("m,k,n", [(3, 300, 130), (8, 256, 64),
+                                   (1, 384, 32), (64, 512, 8)])
+def test_fused_auto_range_matches_pallas_backend(rng, m, k, n, kind):
+    """The plain version with the auto-range fit folded in, through the
+    port's ``pallas`` backend, against the reference backend (pre-fit,
+    then the Pallas kernel in interpret mode): on integer inputs with a
+    power-of-two grid y and ops are equal bit for bit (the partial sums,
+    hence their maximum and the register, are exact); on floats
+    rtol=atol=1e-5 with ops equal."""
+    pj, pt = _pair(delta_r1=1.0, n_r1=2, n_r2=6, m=1)
+    if kind == "integer":
+        a = rng.integers(-8, 9, (m, k)).astype(np.float32)
+        w = rng.integers(-8, 9, (k, n)).astype(np.float32)
+        scales = dict(a_scale=0.5, w_scale=2.0)
+    else:
+        a = rng.normal(0, 1, (m, k)).astype(np.float32)
+        w = rng.normal(0, 0.1, (k, n)).astype(np.float32)
+        scales = {}
+    yj, oj = jpallas(jnp.asarray(a), jnp.asarray(w), pj, auto_range=True,
+                     interpret=True, **scales)
+    yt, ot = tpallas(torch.from_numpy(a), torch.from_numpy(w), pt,
+                     auto_range=True, **scales)
+    if kind == "integer":
+        np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+    else:
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
+    assert int(ot) == float(oj)
+
+
+@pytest.mark.parametrize("vmax", [0.0, 1e-9, 0.37, 5.0, 12345.678, 3.0e7])
+def test_auto_range_register_bit_for_bit_at_equal_maxima(vmax):
+    """The register the kernel and its plain version derive from a maximum
+    (``auto_range_delta``) equals the reference's ``auto_range_fit_grouped``
+    bit for bit when both see the same max |psum|: here a 1-row group whose
+    only partial sum is ``vmax``."""
+    for grid, regs in ((0.0173, dict(n_r1=6, n_r2=6, m=4)),
+                       (3.0, dict(n_r1=2, n_r2=6, m=1))):
+        pj, pt = _pair(delta_r1=0.7, **regs)
+        a_g = np.full((1, 1), vmax, np.float32)
+        w_g = np.ones((1, 1, 1), np.float32)
+        want = np.float32(jfit(jnp.asarray(a_g), jnp.asarray(w_g), pj,
+                               jnp.float32(grid)).delta_r1)
+        got = auto_range_delta(pt.delta_r1, torch.tensor(vmax), grid,
+                               pt.n_r2 + pt.m)
+        assert got.dtype == torch.float32
+        assert got.numpy().tobytes() == want.tobytes()
+        port = tfit_grouped(torch.from_numpy(a_g), torch.from_numpy(w_g), pt,
+                            torch.tensor(grid, dtype=torch.float32))
+        assert torch.equal(port.delta_r1, got)
+
+
+def test_fused_fit_equals_the_pre_fit_then_fixed_registers(rng):
+    """On the same partial sums the fused fit of the plain version and the
+    separate pre-fit (``auto_range_fit``) followed by fixed registers give
+    the same y and ops, bit for bit: one maximum, one register."""
+    pt = tmake(delta_r1=1.0, n_r1=6, n_r2=6, m=4, signed=True)
+    a = torch.from_numpy(rng.normal(0, 1, (5, 300)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.1, (300, 40)).astype(np.float32))
+    grid = torch.tensor(0.003)
+    regs = dict(n_r1=6, n_r2=6, m=4)
+    y_f, ops_f = trq_group_mvm_ref(a, w, pack_scalars(pt, grid, "cpu"),
+                                   auto_range=True, **regs)
+    fitted = tfit(a, w, pt, grid)
+    y_p, ops_p = trq_group_mvm_ref(a, w, pack_scalars(fitted, grid, "cpu"),
+                                   **regs)
+    assert torch.equal(y_f, y_p) and int(ops_f) == int(ops_p)
+    # bf16 weights go in as they are and are widened exactly
+    wb = w.to(torch.bfloat16)
+    y_b, ops_b = trq_group_mvm_ref(a, wb, pack_scalars(pt, grid, "cpu"),
+                                   auto_range=True, **regs)
+    y_w, ops_w = trq_group_mvm_ref(a, wb.float(),
+                                   pack_scalars(pt, grid, "cpu"),
+                                   auto_range=True, **regs)
+    assert torch.equal(y_b, y_w) and int(ops_b) == int(ops_w)
+
+
 def test_plain_version_accumulates_groups_in_order(rng):
     """ref.py sums the groups' quantized tiles one after another from zero,
     as the kernel's group loop does."""
@@ -187,3 +270,10 @@ def test_build_names_sources_and_flags():
     p = build._lib_path("trq_group_mvm")
     assert p.parent == build.BUILD_DIR and p.name.startswith(
         "libtrq_group_mvm-")
+    # the wrapper allocates the launcher's stats words: the op total and
+    # the auto-range maximum cells, two 32-bit cells to a word
+    import re
+    src = (build.CSRC / "trq_group_mvm.cu").read_text()
+    cells = int(re.search(r"kMaxCells = (\d+);", src).group(1))
+    from repro_torch.kernels.trq_group_mvm.kernel import STATS
+    assert STATS == 1 + cells // 2

@@ -68,7 +68,7 @@ def test_engine_tokens_and_ad_ops_match_reference():
 def test_paged_engine_bitwise_equals_dense(backend):
     cfg = get_config(ARCH, smoke=True).replace(
         remat="none", param_dtype="bfloat16", pim_backend=backend)
-    rt = trt.compile(cfg, init(cfg, seed=3), device="cpu")
+    rt = trt.compile(cfg, init(cfg, seed=3, device="cpu"), device="cpu")
     prompts = _prompts(cfg.vocab_size, n=4)
     runs = {}
     for paged in (True, False):
@@ -82,7 +82,7 @@ def test_paged_engine_bitwise_equals_dense(backend):
 def test_prefix_reuse_saves_ad_ops_and_keeps_tokens():
     cfg = get_config(ARCH, smoke=True).replace(
         remat="none", param_dtype="bfloat16", pim_backend="pallas")
-    rt = trt.compile(cfg, init(cfg, seed=4), device="cpu")
+    rt = trt.compile(cfg, init(cfg, seed=4, device="cpu"), device="cpu")
     prompts = _prompts(cfg.vocab_size, n=3, prefix_len=40)
     out = {}
     for reuse in (True, False):
@@ -97,7 +97,7 @@ def test_prefix_reuse_saves_ad_ops_and_keeps_tokens():
 def test_temperature_sampling_is_seeded():
     cfg = get_config(ARCH, smoke=True).replace(remat="none",
                                                pim_backend="exact")
-    rt = trt.compile(cfg, init(cfg, seed=0), device="cpu")
+    rt = trt.compile(cfg, init(cfg, seed=0, device="cpu"), device="cpu")
     prompts = _prompts(cfg.vocab_size, n=2)
     toks = [[r.generated for r in _serve(
         ServeEngine(rt, max_batch=2, max_len=64, rng_seed=seed), prompts,
@@ -107,7 +107,7 @@ def test_temperature_sampling_is_seeded():
 
 def test_compile_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     cfg = get_config(ARCH, smoke=True)
-    state = init(cfg, seed=0)
+    state = init(cfg, seed=0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         trt.compile(cfg, state)
@@ -116,9 +116,20 @@ def test_compile_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     assert trt.compile(cfg, state, device="cpu").device.type == "cpu"
 
 
+def test_init_without_a_device_builds_on_the_card(monkeypatch):
+    """``init`` defaults to the card like every entry point: without one
+    it raises unless the CPU is asked for."""
+    cfg = get_config(ARCH, smoke=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init(cfg, seed=0)
+    state = init(cfg, seed=0, device="cpu")
+    assert all(v.device.type == "cpu" for v in state.values())
+
+
 def test_with_overrides_shares_or_reprograms_the_plan():
     cfg = get_config(ARCH, smoke=True).replace(pim_backend="pallas")
-    rt = trt.compile(cfg, init(cfg, seed=0), device="cpu")
+    rt = trt.compile(cfg, init(cfg, seed=0, device="cpu"), device="cpu")
     assert rt.with_overrides().plan is rt.plan
     fq = rt.with_overrides(backend="fake_quant")
     assert fq.plan.backend == "fake_quant" and fq.model is rt.model
