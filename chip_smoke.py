@@ -47,23 +47,31 @@ which fails the run on any error:
            ops equal; timed at the calibration shape (65,536 samples) and
            at 2^26 elements, beside the bound by bytes (4 B read, 8 B
            written per element);
-6. K3      ``xbar_mvm`` against its plain version at the eight projection
-           shapes of phase 2 and ragged 3 x 300 x 130, with the default
+6. K3      ``xbar_mvm`` against its plain version at the four projection
+           shapes for M = 1, 4, 16, 17 and 64 (decode, continued prefill,
+           prefill and the ragged tiles), ragged 3 x 300 x 130, and one
+           shape with k_i = k_w = 4 (the general body), with the default
            registers, a fractional step and the lossless mode: op counts
            (total and per output) exactly equal everywhere; y bitwise equal
            wherever the f64 control's shift-add stays below 2^24 units of
            the quantizer's grid, and elsewhere, for kernel and plain
            version alike, within the recursive-summation bound
-           64 G u |y| (u = 2^-24) of the f64 control; timed beside the
-           bound (packed bytes at 3.35 TB/s or the 0/1 products at the
-           1,979 TOP/s int8 rate);
+           k_i k_w G u |y| (u = 2^-24) of the f64 control; each kernel
+           body's shapes (the wrapper's shape plan) are printed; timed at
+           M = 4, 16 and 64 beside the bound (packed bytes at 3.35 TB/s or
+           the 0/1 products at the card's one-bit tensor-core rate,
+           ``B1_OPS_PER_S``) and ``torch._int_mm`` on the unpacked int8 0/1
+           planes, (k_i M, K) @ (K, k_w N), as a yardstick (the same
+           multiply-adds with no per-group conversion; never on the path);
 7. bit_exact  full-width llama3.2-3b on the prepared ``bit_exact``
            datapath, the phase-3 trace: every projection of every forward
            launched K3, and the A/D ops equal the closed form (k_i k_w
            ceil(K/128) N conversions per token row of a projection, 7 ops
-           each); then one 64-token prefill on the plain version of K3:
-           relative L2 of the logits within 1e-2, the same argmax, equal
-           A/D ops;
+           each); the ``torch.profiler`` reading of one batch-4 decode step
+           and one 64-token prefill (K3's device time, the rest of the
+           projections, attention, device-idle share); then one 64-token
+           prefill on the plain version of K3: relative L2 of the logits
+           within 1e-2, the same argmax, equal A/D ops;
 8. calibrate  Algorithm 1 on the card: one prefill of the shared prefix
            on a ``bit_exact`` Runtime with per-depth names
            (``scan_layers=False``); forward hooks take each of the 196
@@ -118,7 +126,10 @@ FLOAT_TOL = 1e-5
 MAX_FLIP_FRACTION = 1e-3
 LOGIT_CTRL_FACTOR = 3.0           # phase 4: pallas within 3x the control
 LOGIT_REL_FLOOR = 1e-2
-INT8_OPS_PER_S = 1979e12           # int8 tensor cores, dense (data sheet)
+# one-bit AND-popcount tensor cores (K3's type): the data sheet gives no
+# rate, so the highest that tools/k3_mma_rates.cu measured (mma.m16n8k256,
+# an H100 80GB HBM3 at 700 W)
+B1_OPS_PER_S = 9064.3e12
 CALIB_SAMPLES = 65536              # core.calibrate.MAX_CALIB_SAMPLES
 K2_BIG = 2 ** 26
 # K3 registers: (name, make_params kwargs or None for lossless, the grid
@@ -129,6 +140,9 @@ K3_REGS = [("default", dict(delta_r1=1.0, n_r1=6, n_r2=6, m=4), 1.0),
            ("lossless", None, 1.0)]
 TRACE_BATCH = 4                    # the engine's max batch in the trace
 SLICES = 8 * 8                     # k_i x k_w bit-line conversions per group
+K3_MS = (1, 4, 16, 17, 64)         # phase 6: rows checked (every row tile)
+K3_TIMED_MS = (4, 16, 64)          # decode, prefill_cont, prefill
+K3_NARROW = (16, 3072, 1024, 4)    # M, K, N, k_i = k_w: the general body
 BIT_EXACT_REL_BAR = 1e-2           # phase 7: plain vs K3 logits
 CHECKED_DEPTHS = (0, N_LAYERS - 1)  # phase 8: plain-scored layers
 
@@ -539,7 +553,8 @@ def profile_forward(torch, fn) -> dict:
     clock of the call, the device's busy time (the union of its kernel and
     memset intervals) and idle share, device time by span (``K1`` from its
     kernels' names; the labelled spans of :func:`labelled_spans`) and the
-    ten kernels that took longest.  ``measured`` is False when the
+    ten kernels that took longest.  ``K3`` is summed from its kernels'
+    names the same way.  ``measured`` is False when the
     profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -570,10 +585,13 @@ def profile_forward(torch, fn) -> dict:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     k1 = [v for k, v in by_name.items() if "trq_group_mvm" in k]
+    k3 = [v for k, v in by_name.items() if "xbar_mvm" in k]
     out = dict(measured=True, wall_ms=wall_ms, device_busy_ms=busy / 1e3,
                device_idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms),
                k1_ms=sum(us for _, us in k1) / 1e3,
-               k1_kernels=sum(n for n, _ in k1))
+               k1_kernels=sum(n for n, _ in k1),
+               k3_ms=sum(us for _, us in k3) / 1e3,
+               k3_kernels=sum(n for n, _ in k3))
     for label in labels:
         out[f"{label}_ms"] = sum(
             _device_us(e) for e in events
@@ -602,7 +620,8 @@ def profile_forwards(torch, rt, prompt) -> dict:
         log(f"  profile of one {key}: host {p['wall_ms']:.1f} ms, device "
             f"busy {p['device_busy_ms']:.2f} ms (idle share "
             f"{p['device_idle_share']:.3f}); K1 {p['k1_ms']:.2f} ms in "
-            f"{p['k1_kernels']} kernels, projections "
+            f"{p['k1_kernels']} kernels, K3 {p['k3_ms']:.2f} ms in "
+            f"{p['k3_kernels']} kernels, projections "
             f"{p['projections_ms']:.2f} ms, pre-fit {p['pre-fit_ms']:.2f} "
             f"ms, attention {p['attention_ms']:.2f} ms")
         for t in p["top_kernels"]:
@@ -768,12 +787,12 @@ def k2_phase(torch, rec: dict, device: str = "cuda") -> None:
 def k3_bound(m: int, k: int, n: int, k_i: int = 8, k_w: int = 8):
     """Least time for one call: the packed activation and weight masks
     read once and y written once at the HBM rate, or the k_i k_w M K N
-    one-bit multiply-adds (2 operations each) at the int8 tensor-core
+    one-bit multiply-adds (2 operations each) at the one-bit tensor-core
     rate, whichever is larger."""
     g = -(-k // 128)
     byts = 16 * g * (k_i * m + k_w * n) + 4 * m * n + 8
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * k_i * k_w * m * k * n / INT8_OPS_PER_S * 1e3
+    t_ops = 2 * k_i * k_w * m * k * n / B1_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -795,22 +814,35 @@ def f64_control(torch, a_mask, w_mask, p):
     return torch.einsum("ijgmn,i,j->mn", psum.double(), bi, bj)
 
 
-def k3_operands(torch, gen, m: int, k: int, n: int, dev):
+def k3_operands(torch, gen, m: int, k: int, n: int, dev, bits: int = 8):
     """Main-path operands: bf16-valued activations and weights, PTQ'd to
-    8-bit ints as the bit_exact backend does, offset-encoded and packed."""
+    ``bits``-bit ints as the bit_exact backend does, offset-encoded and
+    packed."""
     from repro_torch.kernels.xbar_mvm import pack_planes, pack_weight_planes
     from repro_torch.pim.backend import ptq_int, ptq_scale
     a = torch.randn(m, k, generator=gen, device=dev).bfloat16().float()
     w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
          ).bfloat16().float()
-    a_u = ptq_int(a, ptq_scale(a, 8), 8) + 128
-    u = ptq_int(w, ptq_scale(w, 8), 8) + 128
-    return pack_planes(a_u, 8), pack_weight_planes(u, 8)
+    half = 2 ** (bits - 1)
+    a_u = ptq_int(a, ptq_scale(a, bits), bits) + half
+    u = ptq_int(w, ptq_scale(w, bits), bits) + half
+    return pack_planes(a_u, bits), pack_weight_planes(u, bits)
+
+
+def int_mm_planes(torch, a_mask, w_mask):
+    """The yardstick's operands: the unpacked int8 0/1 planes as one
+    (k_i M, K) @ (K, k_w N) product for ``torch._int_mm``."""
+    from repro_torch.kernels.xbar_mvm.ref import unpack_planes
+    k_i, m = a_mask.shape[:2]
+    k_w, _, n = w_mask.shape[:3]
+    a8 = unpack_planes(a_mask).reshape(k_i * m, -1).to(torch.int8)
+    w8 = unpack_planes(w_mask).permute(1, 3, 0, 2).reshape(-1, k_w * n)
+    return a8, w8.to(torch.int8)
 
 
 def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     from repro_torch.core.trq import make_params
-    from repro_torch.kernels.xbar_mvm.kernel import xbar_mvm_cuda
+    from repro_torch.kernels.xbar_mvm import kernel as k3
     from repro_torch.kernels.xbar_mvm import pack_scalars
     from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
 
@@ -819,9 +851,16 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     gen.manual_seed(2)
     flush = torch.empty(2 * L2_BYTES // 4, device=dev)
     u = 2.0 ** -24
-    for (m, k, n) in MAIN_SHAPES + [(3, 300, 130)]:
-        a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev)
+    sms = k3.sm_count(dev)
+    bodies: dict = {}
+    cases = [(m, k, n, 8) for m in K3_MS for k, n in PROJ_KN]
+    cases += [(3, 300, 130, 8), K3_NARROW]
+    for (m, k, n, bits) in cases:
+        a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev, bits)
         g = -(-k // 128)
+        sp = k3.plan(m, g, n, bits, bits, sms)
+        bodies.setdefault(sp.body, []).append(
+            f"{m}x{k}x{n}/{sp.split}")
         for name, regs, unit in K3_REGS:
             p = make_params(device=dev, **regs) if regs else None
             s = pack_scalars(p, dev)
@@ -829,7 +868,7 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
             if p is not None:
                 kw.update(n_r1=p.n_r1, n_r2=p.n_r2, m=p.m, nu=p.nu,
                           mode=p.mode)
-            acc, ops, per = xbar_mvm_cuda(a_mask, w_mask, s, **kw)
+            acc, ops, per = k3.xbar_mvm_cuda(a_mask, w_mask, s, **kw)
             acc_r, ops_r, per_r = xbar_mvm_ref(a_mask, w_mask, s, **kw)
             ctrl = f64_control(torch, a_mask, w_mask, p)
             torch.cuda.synchronize()
@@ -838,7 +877,7 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                                      f"{name}: {int(ops)} vs {int(ops_r)}")
             exact = ctrl < 2.0 ** 24 * unit       # every partial sum exact
             same = acc == acc_r
-            bar = SLICES * g * u * ctrl
+            bar = bits * bits * g * u * ctrl
             err = (acc.double() - ctrl).abs()
             err_r = (acc_r.double() - ctrl).abs()
             n_exact = int(exact.sum())
@@ -848,7 +887,8 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                   and bool(torch.isfinite(acc).all()))
             worst = float((acc - acc_r).abs().max())
             rec["max_abs_err"] = max(rec["max_abs_err"], worst)
-            line = (f"  {m:>3}x{k:>5}x{n:>5} {name:>10}: ops {int(ops)} "
+            line = (f"  {m:>3}x{k:>5}x{n:>5} {bits}b {sp.body}/split "
+                    f"{sp.split} {name:>10}: ops {int(ops)} "
                     f"equal (per output too); y bitwise equal to plain at "
                     f"{n_same}/{acc.numel()} ({n_exact} in the exact "
                     f"region), max |K3 - plain| {worst:.3e}, max |K3 - "
@@ -856,25 +896,35 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                     f"element {float(bar.flatten()[err.argmax()]):.3e})")
             if not ok:
                 raise AssertionError("K3 outside its bar:" + line)
-            if name == "default" and (m, k, n) in MAIN_SHAPES:
+            if name == "default" and m in K3_TIMED_MS and (k, n) in \
+                    PROJ_KN and bits == 8:
                 kw_main = dict(kw, per_output=False)
-                kern = lambda: xbar_mvm_cuda(  # noqa: E731
+                kern = lambda: k3.xbar_mvm_cuda(  # noqa: E731
                     a_mask, w_mask, s, **kw_main)
                 ms = device_ms(torch, kern, 20, flush)
                 per_call = call_ms(torch, kern, 20, flush)
                 plain = device_ms(torch, lambda: xbar_mvm_ref(
                     a_mask, w_mask, s, **kw_main), 3, flush)
+                a8, w8 = int_mm_planes(torch, a_mask, w_mask)
+                mm_ms = device_ms(torch, lambda: torch._int_mm(a8, w8), 20,
+                                  flush)
+                del a8, w8
                 b, by = k3_bound(m, k, n)
                 rec["shapes"].append(dict(shape=[m, k, n], ms=ms,
                                           call_ms=per_call, plain_ms=plain,
-                                          bound_ms=b, bound_by=by))
+                                          bound_ms=b, bound_by=by,
+                                          int_mm_ms=mm_ms, body=sp.body,
+                                          split=sp.split))
                 line += (f"; {ms:.4f} ms on the device, {per_call:.4f} ms "
                          f"per call (plain {plain:.4f} ms, bound {b:.4f} ms "
-                         f"by {by})")
+                         f"by {by}; yardstick torch._int_mm on the 0/1 "
+                         f"planes, no conversion, {mm_ms:.4f} ms)")
             log(line)
             del acc, acc_r, ctrl, err, err_r, per, per_r
         del a_mask, w_mask
         torch.cuda.empty_cache()
+    for body, shapes in sorted(bodies.items()):
+        log(f"  body {body} (MxKxN/split): {', '.join(shapes)}")
 
 
 # ---------------------------------------------------------------------------
@@ -936,6 +986,10 @@ def bit_exact_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
         f"{out['prefill64_ms']:.1f} ms; K3's device part from phase 6: "
         f"{out['decode_step_k3_ms']:.1f} ms and "
         f"{out['prefill64_k3_ms']:.1f} ms")
+    # the profiler's split of the same two forwards: K3, the rest of the
+    # projections (PTQ chain, activation packing, zero-point correction),
+    # attention, and the device-idle share
+    out["profile"] = profile_forwards(torch, rt, prompts[0])
 
     # -- the plain version of K3 on one full-width prefill ------------------
     toks = prompts[0][None].astype(np.int32)

@@ -154,15 +154,28 @@ def test_trq_quant_kernel_equals_plain(card, pk, signed, mode, dtype):
     assert torch.equal(q, q_r) and torch.equal(ops, ops_r)
 
 
-def _xbar_operands(rng, card, m, k, n):
+def _xbar_operands(rng, card, m, k, n, k_i=8, k_w=8):
     from repro_torch.kernels.xbar_mvm import pack_planes, pack_weight_planes
-    a = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.int32))
-    w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int32))
-    return (pack_planes(a.to(card), 8),
-            pack_weight_planes((w + 128).to(card), 8))
+    a = torch.from_numpy(rng.integers(0, 2 ** k_i, (m, k)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(-2 ** (k_w - 1), 2 ** (k_w - 1),
+                                      (k, n)).astype(np.int32))
+    return (pack_planes(a.to(card), k_i),
+            pack_weight_planes((w + 2 ** (k_w - 1)).to(card), k_w))
+
+
+def _xbar_kwargs(card, regs):
+    from repro_torch.kernels.xbar_mvm import pack_scalars as k3_scalars
+    p = make_params(device=card, **regs) if regs else None
+    kw = dict(lossless=p is None)
+    if p is not None:
+        kw.update(n_r1=p.n_r1, n_r2=p.n_r2, m=p.m, nu=p.nu, mode=p.mode)
+    return k3_scalars(p, card), kw
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_output", [True, False], ids=["per", "total"])
+@pytest.mark.parametrize("bits", [(8, 8), (4, 4), (8, 4)],
+                         ids=["8x8", "4x4", "8x4"])
 @pytest.mark.parametrize("regs", [None, dict(delta_r1=1.0, n_r1=6, n_r2=6,
                                              m=4),
                                   dict(delta_r1=0.7, n_r1=3, n_r2=5, m=4,
@@ -170,29 +183,60 @@ def _xbar_operands(rng, card, m, k, n):
                                   dict(delta_r1=1.0, n_r1=4, n_r2=4, m=3,
                                        mode="uniform")],
                          ids=["lossless", "default", "frac-bias", "uniform"])
-@pytest.mark.parametrize("m,k,n", [(3, 300, 130), (4, 256, 64),
-                                   (21, 384, 40)])
-def test_xbar_mvm_kernel_equals_plain(card, m, k, n, regs):
+@pytest.mark.parametrize("k,n", [(300, 130), (1000, 40), (100, 72),
+                                 (300, 1100), (256, 64)])
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 64])
+def test_xbar_mvm_kernel_equals_plain(card, m, k, n, regs, bits, per_output):
     """Bit-line sums are exact integers and the plain version accumulates
     in the kernel's order, so y, the per-output ops and the total agree
-    bit for bit."""
+    bit for bit: at every row tile (M = 1 .. 64), with K past the last
+    full group, N past the last column tile, both aligned (256 x 64), one
+    group (no split) or several split among a cluster's blocks, and
+    narrow bit widths (the general body)."""
     from repro_torch.kernels.xbar_mvm import kernel as k3
-    from repro_torch.kernels.xbar_mvm import pack_scalars as k3_scalars
     from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
     rng = np.random.default_rng(m * k + n)
-    a_mask, w_mask = _xbar_operands(rng, card, m, k, n)
-    p = make_params(device=card, **regs) if regs else None
-    kw = dict(lossless=p is None, per_output=True)
-    if p is not None:
-        kw.update(n_r1=p.n_r1, n_r2=p.n_r2, m=p.m, nu=p.nu, mode=p.mode)
-    s = k3_scalars(p, card)
+    a_mask, w_mask = _xbar_operands(rng, card, m, k, n, *bits)
+    s, kw = _xbar_kwargs(card, regs)
     before = k3.LAUNCHES
-    acc, ops, per = k3.xbar_mvm_cuda(a_mask, w_mask, s, **kw)
+    acc, ops, per = k3.xbar_mvm_cuda(a_mask, w_mask, s,
+                                     per_output=per_output, **kw)
     assert k3.LAUNCHES == before + 1
-    acc_r, ops_r, per_r = xbar_mvm_ref(a_mask, w_mask, s, **kw)
+    acc_r, ops_r, per_r = xbar_mvm_ref(a_mask, w_mask, s,
+                                       per_output=per_output, **kw)
     torch.cuda.synchronize()
     assert torch.equal(acc, acc_r)
-    assert torch.equal(per, per_r) and int(ops) == int(ops_r)
+    assert int(ops) == int(ops_r)
+    if per_output:
+        assert torch.equal(per, per_r)
+    else:
+        assert per is None and per_r is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [4, 16])
+def test_xbar_mvm_split_does_not_change_results(card, m, split):
+    """The groups of an output tile split among 1, 2, 4 or 8 blocks of a
+    cluster and folded in group order give the same bits.  N is chosen so
+    that the wrapper's shape plan picks ``split`` on this card: the
+    largest split that keeps ``tiles * split`` blocks in one wave."""
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
+    k, g = 1100, 9
+    sms = k3.sm_count(card)
+    m_tiles = -(-m // (4 if m <= 4 else 8))
+    n = k3.BLOCKS_PER_SM * sms // split // m_tiles * k3.BLOCK_COLS - 5
+    assert k3.plan(m, g, n, 8, 8, sms).split == split
+    rng = np.random.default_rng(7)
+    a_mask, w_mask = _xbar_operands(rng, card, m, k, n)
+    s, kw = _xbar_kwargs(card, dict(delta_r1=0.7, n_r1=3, n_r2=5, m=4,
+                                    bias=3.0))
+    want = xbar_mvm_ref(a_mask, w_mask, s, per_output=True, **kw)
+    got = k3.xbar_mvm_cuda(a_mask, w_mask, s, per_output=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[2], want[2]) and int(got[1]) == int(want[1])
 
 
 @pytest.mark.cuda

@@ -55,7 +55,9 @@ def test_ctypes_bindings_match_the_c_prototypes(name):
     """The GPU compiler is not available here, so the one interface it
     cannot check — the ctypes argument list of each launcher — is held
     to the C prototype: a pointer where the C side takes a pointer, a C
-    int where it takes an int, ``long long`` where it takes one."""
+    int where it takes an int, ``long long`` where it takes one; and the
+    wrapper's loader of that launcher exists (the CPU path never calls
+    it)."""
     import ctypes
     import importlib
     from repro_torch.kernels import build
@@ -63,6 +65,7 @@ def test_ctypes_bindings_match_the_c_prototypes(name):
     src = (build.CSRC / f"{name}.cu").read_text()
     params = _c_params(src, f"{name}_launch")
     kernel = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+    assert callable(getattr(kernel, "_lib", None)), "no library loader"
     want = [ctypes.c_void_p if "*" in p else
             ctypes.c_longlong if "long long" in p else ctypes.c_int
             for p in params]

@@ -135,3 +135,74 @@ def test_masks_in_ops_total_out(rng):
     assert int(total) == 8 * 8 * 8 * 2 * 3 * 6
     want = a.astype(np.int64) @ (w.astype(np.int64) + 128)
     np.testing.assert_array_equal(acc.numpy(), want)
+
+
+PLAN_SHAPES = [(m, k, n) for m in (1, 4, 5, 16, 17, 64, 2048)
+               for k, n in ((3072, 3072), (3072, 1024), (3072, 8192),
+                            (8192, 3072), (300, 130), (100, 40),
+                            (16384, 512))]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_shape_plan_fills_the_card_within_the_budget(m, k, n, sms):
+    """The CUDA kernel's shape rules (``kernel.plan``): 4-row blocks at
+    decode batches, 8-row blocks above, 32 columns a block; the groups
+    split among the largest power of two of a cluster's blocks (at most 8
+    and G) that keeps one wave of 2 blocks an SM, or, when that split
+    block's per-group partials pass the budget, the least larger split
+    that fits, else none."""
+    from repro_torch.kernels.xbar_mvm.kernel import (
+        ACC_BUDGET, BLOCK_COLS, BLOCKS_PER_SM, plan)
+    g = -(-k // 128)
+    p = plan(m, g, n, 8, 8, sms)
+    tm = 4 if m <= 4 else 8
+    assert (p.body, p.tm, p.tn) == (f"tc{tm}", tm, BLOCK_COLS)
+    tiles = -(-m // tm) * -(-n // BLOCK_COLS)
+
+    def fits(s):
+        return s == 1 or -(-g // s) * tm * BLOCK_COLS * 4 <= ACC_BUDGET
+    splits = [s for s in (1, 2, 4, 8) if s <= max(1, g)]
+    one_wave = max(s for s in splits
+                   if s == 1 or tiles * s <= BLOCKS_PER_SM * sms)
+    larger = [s for s in splits if s > one_wave and fits(s)]
+    want = one_wave if fits(one_wave) else min(larger, default=1)
+    assert p.split == want and p.blocks == tiles * want
+
+
+def test_shape_plan_of_the_serving_shapes():
+    """llama3.2-3b's projections on 132 SMs: (split, blocks) at decode
+    (M = 4), continued prefill (16) and prefill (64), in the order wq/wo,
+    wk/wv, w_gate/w_up, w_down."""
+    from repro_torch.kernels.xbar_mvm.kernel import plan
+    kn = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
+    got = {m: [plan(m, k // 128, n, 8, 8, 132)[3:] for k, n in kn]
+           for m in (4, 16, 64)}
+    assert got == {4: [(2, 192), (8, 256), (1, 256), (2, 192)],
+                   16: [(1, 192), (4, 256), (1, 512), (1, 192)],
+                   64: [(1, 768), (1, 256), (1, 2048), (1, 768)]}
+
+
+def test_shape_plan_names_the_general_body():
+    from repro_torch.kernels.xbar_mvm.kernel import plan
+    assert plan(4, 24, 1024, 8, 8, 132).body == "tc4"
+    assert plan(4, 24, 1024, 4, 4, 132).body == "tc4_general"
+    assert plan(16, 24, 1024, 8, 4, 132).body == "tc8_general"
+
+
+def test_shape_plan_constants_match_the_cuda_source():
+    """The plan's limits mirror the kernel's: columns a block (kTN),
+    blocks a cluster (kMaxSplit), the partials budget (kAccBudget) and
+    the blocks an SM of ``__launch_bounds__``, read from the ``.cu``."""
+    import re
+    from repro_torch.kernels import build
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    src = (build.CSRC / "xbar_mvm.cu").read_text()
+    env: dict = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src,
+                                 re.M):
+        env[name] = eval(expr, {}, dict(env))
+    blocks = re.search(r"__launch_bounds__\(kThreads, (\d+)\)", src)
+    assert (env["kTN"], env["kMaxSplit"], env["kAccBudget"]) == \
+        (k3.BLOCK_COLS, k3.MAX_SPLIT, k3.ACC_BUDGET)
+    assert blocks and int(blocks.group(1)) == k3.BLOCKS_PER_SM
