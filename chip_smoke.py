@@ -80,7 +80,28 @@ which fails the run on any error:
            candidate through K2; on the 14 projections of the first and
            last layer, scoring with K2's plain version must pick identical
            registers; the calibrated QuantState then serves the trace and
-           its A/D ops are read against the uniform 8-bit baseline.
+           its A/D ops are read against the uniform 8-bit baseline;
+9. bench   ``benchmarks/serve_bench_torch.py``'s shared-prefix chat (4
+           requests sharing a 40-token prefix, 4 new tokens each, max
+           batch 2) on full-width llama3.2-3b on ``pallas`` and on
+           ``bit_exact``, prefix reuse on and off: tokens/s, mean TTFT,
+           A/D ops per request, the saving from reuse and whether greedy
+           tokens agree with and without reuse (a reading: dynamic scales
+           make them differ, in the reference too); fails unless reuse
+           serves the prefix and strictly saves A/D ops and the per-layer
+           census (``pim.ad_ops_tally``) of one prefill sums to the
+           engine's total bit for bit; then ``Runtime.save`` of phase 8's
+           calibrated QuantState must load back equal;
+10. noise  the ``noisy`` backend: with no CrossbarModel and with the
+           all-zeros one, a full-width prefill and one ``w_gate`` call give
+           y and A/D ops bitwise equal to ``bit_exact``, through K3; a
+           seeded model with every fault kind reproduces itself bit for bit
+           at the smoke config (two compiled plans and the dynamic path)
+           and on one full-width ``w_gate`` (the dynamic call and a baked
+           plan, 8 ops a conversion); the fault rates and sigmas it draws
+           there lie within 6 standard errors of the model's parameters.
+           (A non-null plan holds f32 analog planes, 32 bytes a weight:
+           a full-width model would not fit the card.)
 
 Kernel launch counts are reset just before each main path (phase 3 for
 K1, phase 7 for K3, the calibration of phase 8 for K2) and read just
@@ -1124,7 +1145,7 @@ def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
         f"{conversions} conversions ({run['total_ad_ops'] / conversions:.4f}"
         f" per conversion) against {uniform8} for a uniform 8-bit SAR ADC: "
         f"ADC-op ratio {ratio:.4f}x (the paper reports 1.6-2.3x)")
-    return dict(layers=summ["layers"], twin_layers=summ["twin_layers"],
+    return qs, dict(layers=summ["layers"], twin_layers=summ["twin_layers"],
                 mean_ops=summ["mean_ops"], calibrate_s=cal_s,
                 k2_launches=rec["launches"], plain_checked=checked,
                 tokens_per_s=run["tokens_per_s"],
@@ -1132,6 +1153,235 @@ def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
                 total_ad_ops=run["total_ad_ops"], conversions=conversions,
                 uniform8_ad_ops=uniform8, adc_op_ratio=ratio,
                 forwards=run["forwards"], k3_launches=run["launches"])
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the serve bench, then the noise seam
+# ---------------------------------------------------------------------------
+
+def serve_bench_phase(torch, cfg, qs, device: str = "cuda") -> dict:
+    """``benchmarks/serve_bench_torch.py``'s shared-prefix chat (quick:
+    4 requests, 4 new tokens, max batch 2) at full width on ``pallas`` and
+    ``bit_exact``, reuse on and off; the census on one forward; then
+    ``Runtime.save`` of phase 8's registers read back."""
+    import tempfile
+    from benchmarks import serve_bench_torch as sb
+    from repro_torch.core.quant_state import (load_quant_state,
+                                              quant_state_to_dict)
+    from repro_torch.pim import ad_ops_tally
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for backend in ("pallas", "bit_exact"):
+        built = sb.build(sb.ARCH, backend, device)
+        rt = built[1]
+        if (rt.cfg.n_layers, rt.cfg.d_model) != (cfg.n_layers, cfg.d_model):
+            raise AssertionError("the serve bench did not run full width")
+        rec = sb.shared_prefix_chat(built, quick=True)
+        log(f"  {backend}: {rec['requests']} requests, "
+            f"{rec['tokens_per_s']:.2f} tok/s, mean ttft "
+            f"{1e3 * rec['mean_ttft_s']:.1f} ms, "
+            f"{rec['mean_ad_ops_per_request']:.0f} A/D ops per request; "
+            f"without reuse {rec['no_reuse_tokens_per_s']:.2f} tok/s, ttft "
+            f"{1e3 * rec['no_reuse_mean_ttft_s']:.1f} ms; prefix reuse "
+            f"saves {rec['reuse_ad_ops_saved_frac']:.4f} of "
+            f"{rec['no_reuse_total_ad_ops']:.0f} A/D ops; greedy tokens "
+            f"equal with and without reuse: "
+            f"{rec['reuse_tokens_identical']} (a reading: the suffix-only "
+            f"prefill and the batch-wide dynamic scales change the "
+            f"quantization grid, in the reference as here)")
+        if rec["reused_prompt_tokens"] != 3 * 48:
+            raise AssertionError(f"{backend}: the shared prefix was not "
+                                 f"reused")
+        # the census on one forward: a prefill-only request
+        eng = ServeEngine(rt, max_batch=1, max_len=128)
+        eng.submit(sb.chat_prompts(cfg.vocab_size, True)[0],
+                   max_new_tokens=1)
+        with ad_ops_tally() as census:
+            eng.run()
+        layer_sum = census.total()
+        engine_total = eng.stats()["total_ad_ops"]
+        log(f"  census of one prefill: {len(census.by_layer)} names "
+            f"(period-local, each summing {cfg.n_layers} layers), layer sum "
+            f"{layer_sum:.0f}, engine total {engine_total:.0f}")
+        if layer_sum != engine_total or \
+                len(census.by_layer) != PROJ_PER_LAYER:
+            raise AssertionError(f"{backend}: the census does not add up "
+                                 f"to the engine's total")
+        rec["census_layer_sum"] = layer_sum
+        out[backend] = rec
+        del built, eng
+        torch.cuda.empty_cache()
+
+    # Runtime.save -> load_quant_state round-trips phase 8's registers
+    rt_q = rt.with_overrides(quant_state=qs, plan=False)
+    with tempfile.TemporaryDirectory() as d:
+        back = load_quant_state(rt_q.save(d))
+    del rt, rt_q
+    same = quant_state_to_dict(back) == quant_state_to_dict(qs)
+    names = [f"layer_{i}/{w}" for i in range(cfg.n_layers)
+             for w in ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                       "mlp/w_gate", "mlp/w_up", "mlp/w_down")]
+    regs = all(_regs(back.lookup(n)) == _regs(qs.lookup(n)) for n in names)
+    log(f"  Runtime.save -> load: {len(qs)} rules, file equal {same}, "
+        f"registers equal on {len(names)} layers {regs}")
+    if not (same and regs):
+        raise AssertionError("Runtime.save did not round-trip the "
+                             "calibrated QuantState")
+    out["save_roundtrip_rules"] = len(qs)
+    return out
+
+
+def _regs(p):
+    return None if p is None else (p.mode, p.n_r1, p.n_r2, p.m, p.nu,
+                                   p.signed, float(p.delta_r1),
+                                   float(p.bias))
+
+
+# a device with every fault kind, used at the smoke config and on one
+# full-width layer
+NOISE_MODEL = dict(g_sigma=0.1, sa0=0.01, sa1=0.005, read_sigma=0.3,
+                   ir_drop=0.05, adc_offset=0.2, adc_sigma=0.1, seed=11)
+BOUND_Z = 6.0     # phase 10: a drawn rate or sigma within 6 standard errors
+
+
+def drawn_rates(torch, planes, analog) -> dict:
+    """The SA0 and SA1 rates and the relative conductance sigma drawn into
+    ``analog`` from ideal 0/1 ``planes`` (SA0 pins a 1-cell to exactly 0,
+    SA1 a 0-cell to exactly 1; variation leaves a 0-cell at 0)."""
+    ones = planes == 1
+    g1 = analog[ones]
+    sa0 = (g1 == 0).double().mean().item()
+    sa1 = (analog[~ones] == 1).double().mean().item()
+    moved = g1[(g1 != 0) & (g1 != 1)]
+    return dict(sa0=sa0, sa1=sa1, g_sigma=(moved.double() - 1).std().item(),
+                n_sa0=int(ones.sum()), n_sa1=int((~ones).sum()),
+                n_g_sigma=moved.numel())
+
+
+def noise_phase(torch, cfg_be, device: str = "cuda") -> dict:
+    """Null and all-zero CrossbarModels against bit_exact at full width (the
+    ``xbar_mvm`` kernel must run), a seeded model reproducing at the smoke
+    config, and the fault rates drawn on one full-width layer."""
+    import math
+    import numpy as np
+    from repro_torch import runtime
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.models.registry import get_config, init
+    from repro_torch.pim import CrossbarModel, pim_mvm, prepare_linear
+    from repro_torch.pim.backend import ptq_int, ptq_scale
+    from repro_torch.pim.crossbar import PimConfig, weight_planes
+    from repro_torch.pim.noise import (adc_offsets, perturb_planes,
+                                       perturb_psums, value_salt)
+
+    out = {}
+    state = init(cfg_be, seed=0, device=device)
+    rt_be = runtime.compile(cfg_be, state, device=device)
+    toks = trace_prompts(cfg_be)[0][None].astype(np.int32)
+    (l_be, _), r_be = rt_be.prefill(toks, max_len=128)
+    x = torch.randn((4, cfg_be.d_model), generator=torch.Generator(
+        device=device).manual_seed(0), device=device).to(torch.bfloat16)
+    y_be, m_be = rt_be.mvm(x, "layer_0/mlp/w_gate")
+    for label, model in (("null", None), ("all-zero", CrossbarModel())):
+        rt_n = rt_be.with_overrides(backend="noisy", crossbar_model=model)
+        k3.LAUNCHES = 0
+        (l_n, _), r_n = rt_n.prefill(toks, max_len=128)
+        y_n, m_n = rt_n.mvm(x, "layer_0/mlp/w_gate")
+        torch.cuda.synchronize()
+        launches = k3.LAUNCHES
+        ok = (torch.equal(l_n, l_be) and r_n.total() == r_be.total()
+              and torch.equal(y_n, y_be) and m_n.total() == m_be.total())
+        log(f"  {label} model, full width: prefill logits and ad_ops "
+            f"({r_n.total():.0f}) and one w_gate y and ad_ops bitwise equal "
+            f"to bit_exact: {ok}; K3 launches {launches}")
+        if not ok or launches != PROJ_PER_LAYER * cfg_be.n_layers + 1:
+            raise AssertionError(f"the {label} CrossbarModel is not "
+                                 f"bit_exact through K3")
+        del rt_n
+    out["null_identity"] = 1.0
+    w = rt_be.model.layers[0].mlp.w_gate.w
+    del rt_be, state
+    torch.cuda.empty_cache()
+
+    # -- a seeded model reproduces itself at the smoke config ---------------
+    cfg_s = get_config(ARCH, smoke=True).replace(
+        remat="none", pim_backend="noisy")
+    model = CrossbarModel(**NOISE_MODEL)
+    s_state = init(cfg_s, seed=0, device=device)
+    s_toks = np.random.default_rng(0).integers(0, cfg_s.vocab_size, (1, 16))
+    runs = []
+    for plan in (True, True, None):
+        rt_s = runtime.compile(cfg_s, s_state, device=device, plan=plan,
+                               crossbar_model=model)
+        (lg, _), rep = rt_s.prefill(s_toks, max_len=32)
+        runs.append((lg, rep.total()))
+    (lg0, _), rep0 = runtime.compile(cfg_s.replace(pim_backend="bit_exact"),
+                                     s_state, device=device).prefill(
+        s_toks, max_len=32)
+    same = all(torch.equal(lg, runs[0][0]) and ops == runs[0][1]
+               for lg, ops in runs[1:])
+    div = rel_l2(runs[0][0], lg0)
+    log(f"  seeded model, smoke config: two compiled runs and the dynamic "
+        f"path bitwise equal: {same}; logits relative L2 to bit_exact "
+        f"{div:.4f}; ad_ops {runs[0][1]:.0f} vs {rep0.total():.0f}")
+    if not same or not math.isfinite(div):
+        raise AssertionError("a seeded CrossbarModel did not reproduce")
+    out.update(smoke_reproduces=1.0, smoke_rel_l2=div)
+
+    # -- one full-width layer on the non-null path: the dynamic call and a
+    # baked plan agree bit for bit, at the closed-form op count -----------
+    xw = torch.randn((4, w.shape[0]), generator=torch.Generator(
+        device=device).manual_seed(1), device=device).to(w.dtype)
+    dyn = pim_mvm(xw, w, None, backend="noisy", crossbar_model=model)
+    lp = prepare_linear(w, None, backend="noisy", crossbar_model=model)
+    prep = pim_mvm(xw, plan=lp, crossbar_model=model)
+    ideal = pim_mvm(xw, w, None, backend="bit_exact")
+    torch.cuda.synchronize()
+    want_ops = 8 * SLICES * -(-w.shape[0] // 128) * 4 * w.shape[1]
+    same = torch.equal(dyn.y, prep.y) and int(dyn.ad_ops) == int(
+        prep.ad_ops) == want_ops
+    rel = rel_l2(dyn.y.float(), ideal.y.float())
+    log(f"  one full-width w_gate {tuple(xw.shape)} x {tuple(w.shape)} "
+        f"under the model: dynamic and baked plan ({lp.w_analog.numel()} "
+        f"f32 cells) bitwise equal {same}, {int(dyn.ad_ops)} A/D ops "
+        f"(closed form {want_ops}), relative L2 to bit_exact {rel:.4f}")
+    if not same or not math.isfinite(rel):
+        raise AssertionError("the noisy path disagrees with its plan at "
+                             "full width")
+    out["layer_rel_l2"] = rel
+    del lp, dyn, prep, ideal
+
+    # -- the faults drawn on one full-width layer ----------------------------
+    pim = PimConfig()
+    wf = w.float()
+    w_int = ptq_int(wf, ptq_scale(wf, pim.k_w), pim.k_w)
+    planes = weight_planes(w_int, pim)
+    salt = value_salt(w_int)
+    analog = perturb_planes(planes, model, salt)
+    got = drawn_rates(torch, planes, analog)
+    off = adc_offsets(model, salt, planes.shape[:2] + planes.shape[3:],
+                      device)
+    got.update(adc_offset=off.double().std().item(), n_adc_offset=off.numel())
+    p = perturb_psums(torch.zeros((8, 8, planes.shape[1], 4,
+                                   planes.shape[3]), device=device),
+                      model.replace(ir_drop=0.0, adc_sigma=0.0), pim)
+    got.update(read_sigma=p.double().std().item(), n_read_sigma=p.numel())
+    del analog, planes, p
+    bad = []
+    for f in ("sa0", "sa1", "g_sigma", "adc_offset", "read_sigma"):
+        want, n = NOISE_MODEL[f], got[f"n_{f}"]
+        # binomial standard error of a rate; 1/sqrt(2n) relative of a sigma
+        se = math.sqrt(want * (1 - want) / n) if f.startswith("sa") else \
+            want / math.sqrt(2 * n)
+        log(f"  {f}: drew {got[f]:.6f} from {n} samples against {want} "
+            f"(bound +-{BOUND_Z * se:.6f})")
+        if abs(got[f] - want) > BOUND_Z * se:
+            bad.append(f)
+    if bad:
+        raise AssertionError(f"drawn faults off their parameters: {bad}")
+    out["drawn"] = {k: got[k] for k in ("sa0", "sa1", "g_sigma",
+                                        "adc_offset", "read_sigma")}
+    return out
 
 
 def pallas_config():
@@ -1210,7 +1460,14 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     log("phase 8: Algorithm 1 on the card, then serve the calibrated "
         "registers")
-    calib = calibrate_phase(torch, rec2, cfg_be)
+    qs, calib = calibrate_phase(torch, rec2, cfg_be)
+    torch.cuda.empty_cache()
+    log("phase 9: the serve bench on full-width llama3.2-3b, pallas and "
+        "bit_exact")
+    bench = serve_bench_phase(torch, cfg, qs)
+    torch.cuda.empty_cache()
+    log("phase 10: the noise seam")
+    noise = noise_phase(torch, cfg_be)
 
     for r, shape in ((rec, HEADLINE_SHAPE), (rec2, [CALIB_SAMPLES]),
                      (rec3, HEADLINE_SHAPE)):
@@ -1222,6 +1479,8 @@ def main(argv) -> int:
     log(json.dumps({"serve": serve}))
     log(json.dumps({"serve_bit_exact": serve_be}))
     log(json.dumps({"calibration": calib}))
+    log(json.dumps({"serve_bench": bench}))
+    log(json.dumps({"noise": noise}))
     log(card_line())
     log(json.dumps({"kernels": [rec, rec2, rec3]}))
     log(json.dumps({"ok": True, "device": {

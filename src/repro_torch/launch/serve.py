@@ -8,9 +8,11 @@ Serves randomly initialised (seeded) weights at the arch's full width on
 config with the kernels' plain versions).  With ``--pim pallas`` every
 projection runs the ``trq_group_mvm`` CUDA kernel; with ``--pim bit_exact``
 the bit-exact sliced crossbar, one A/D conversion per bit-line, through the
-``xbar_mvm`` CUDA kernel.  ``--quant-state`` installs Algorithm-1 per-layer
-registers; without it every layer takes the model-wide default (which
-``pallas`` auto-ranges).
+``xbar_mvm`` CUDA kernel; ``--pim noisy`` is ``bit_exact`` under the
+ideal ``CrossbarModel``, so it runs the same kernel.  ``--quant-state``
+installs Algorithm-1 per-layer registers; without it every layer takes the
+model-wide default (which ``pallas`` auto-ranges).  ``--energy-report``
+prints the per-request A/D-conversion and energy table.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..core.quant_state import load_quant_state
 from ..models.registry import ARCHS, get_config, init
 from ..pim.backend import list_backends
 from ..serve.engine import ServeEngine
+from ..telemetry.serve_report import format_energy_report, serve_report
 
 
 def main(argv=None):
@@ -57,6 +60,8 @@ def main(argv=None):
     ap.add_argument("--prefix-reuse", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--num-blocks", type=int, default=None)
+    ap.add_argument("--energy-report", action="store_true",
+                    help="print the per-request A/D-energy table")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -100,6 +105,8 @@ def main(argv=None):
           f"ttft {st['mean_ttft_s'] * 1e3:.0f}ms, "
           f"{st['total_ad_ops']:.3e} A/D ops "
           f"({st['total_ad_energy_pj'] / 1e6:.3f} uJ)")
+    if args.energy_report:
+        print(format_energy_report(serve_report(engine)))
     for r in done[:3]:
         print(f"  req {r.uid}: {list(r.generated)[:8]}...")
     return 0

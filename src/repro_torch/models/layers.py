@@ -15,7 +15,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig, TRQConfig
 from ..core.trq import TRQParams, make_params
-from ..pim.backend import get_backend, zero_ops
+from ..pim.backend import get_backend, record_ad_ops, zero_ops
 from ..pim.plan import run_prepared
 
 
@@ -36,19 +36,24 @@ def trq_params_from_cfg(t: TRQConfig) -> TRQParams:
 
 class PimContext:
     """One forward call's execution context: the backend name, the
-    QuantState, the PimPlan and the running A/D-op total (a 0-dim int64
-    tensor on the device, so metering never syncs the host)."""
+    QuantState, the PimPlan, the CrossbarModel (noise-aware backends; None
+    leaves them the ambient one) and the running A/D-op total (a 0-dim
+    int64 tensor on the device, so metering never syncs the host).  Each
+    call's ops also go to the per-layer census when one is open
+    (``pim.backend.ad_ops_tally``)."""
 
     def __init__(self, cfg: ModelConfig, backend: str, quant_state=None,
-                 plan=None, device=None):
+                 plan=None, device=None, crossbar_model=None):
         self.cfg = cfg
         self.backend = backend
         self.quant_state = quant_state
         self.plan = plan
+        self.crossbar_model = crossbar_model
         self.ops = zero_ops(device)
 
-    def add_ops(self, ops: torch.Tensor) -> None:
+    def add_ops(self, ops: torch.Tensor, name: Optional[str] = None) -> None:
         self.ops = self.ops + ops
+        record_ad_ops(name, ops)
 
 
 class PimLinear(nn.Module):
@@ -85,7 +90,8 @@ def pim_linear(lin: PimLinear, x: torch.Tensor, ctx: PimContext,
             raise ValueError(
                 f"stale plan at {lin.name!r}: programmed for "
                 f"({lp.k}, {lp.n}) but the weight is {tuple(lin.w.shape)}")
-        out = run_prepared(x, lp, ste=True)
+        out = run_prepared(x, lp, ste=True,
+                           crossbar_model=ctx.crossbar_model)
     else:
         t = trq
         if t is None and ctx.quant_state is not None:
@@ -95,8 +101,9 @@ def pim_linear(lin: PimLinear, x: torch.Tensor, ctx: PimContext,
             t = trq_params_from_cfg(cfg.trq)
         out = get_backend(ctx.backend)(
             x, lin.w.to(x.dtype), t.to(x.device), ste=True,
-            auto_range=auto_range, delta_grid=cfg.trq.delta_grid)
-    ctx.add_ops(out.ad_ops)
+            auto_range=auto_range, delta_grid=cfg.trq.delta_grid,
+            crossbar_model=ctx.crossbar_model)
+    ctx.add_ops(out.ad_ops, lin.name)
     y = out.y
     if lin.b is not None:
         y = y + lin.b.to(y.dtype)

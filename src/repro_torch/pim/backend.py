@@ -83,6 +83,54 @@ def active_backend() -> Optional[str]:
     return _ACTIVE["backend"]
 
 
+# ---------------------------------------------------------------------------
+# the per-layer A/D-operation census (opt-in; the default path never syncs)
+# ---------------------------------------------------------------------------
+
+class AdOpsTally:
+    """Per-layer A/D operations of every ``pim_linear`` call made while the
+    tally is open, keyed by the layer's QuantState name.  Values stay 0-dim
+    int64 tensors on the device; :meth:`total` is the one host read.
+
+    Unlike the reference, whose eager tally drops the values of jitted or
+    scanned layers, the port runs eagerly and records every layer; under
+    ``scan_layers=True`` the names are period-local, so a key sums its
+    layer over the periods (``scan_layers=False`` gives one key per
+    depth, the reference's census)."""
+
+    def __init__(self):
+        self.by_layer: dict = {}
+
+    def add(self, name: str, ops: torch.Tensor) -> None:
+        prev = self.by_layer.get(name)
+        self.by_layer[name] = ops if prev is None else prev + ops
+
+    def total(self) -> float:
+        return float(sum(self.by_layer.values()))
+
+
+_TALLY: list = []
+
+
+@contextlib.contextmanager
+def ad_ops_tally():
+    """Collect every layer's A/D-operation count in the dynamic extent:
+    ``with ad_ops_tally() as t: rt.prefill(...); t.by_layer``."""
+    t = AdOpsTally()
+    _TALLY.append(t)
+    try:
+        yield t
+    finally:
+        _TALLY.remove(t)
+
+
+def record_ad_ops(name: Optional[str], ops: torch.Tensor) -> None:
+    """Add one call's ops to the innermost open tally; with none open this
+    is a list test and nothing else (no tensor op, no host sync)."""
+    if _TALLY:
+        _TALLY[-1].add(name or "<unnamed>", ops)
+
+
 def zero_ops(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int64, device=device)
 
@@ -185,16 +233,23 @@ def bit_exact_run(x: torch.Tensor, w_mask: torch.Tensor,
     rescale.  ``trq`` acts on the raw bit-line grid; None is lossless."""
     from ..kernels.xbar_mvm import xbar_mvm_packed
     half_a = 2 ** (pim.k_i - 1)
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float()
     a_s = ptq_scale(x2, pim.k_i) if a_scale is None else \
         torch.as_tensor(a_scale, dtype=torch.float32, device=x.device)
     a_u = ptq_int(x2, a_s, pim.k_i) + half_a
     out, ops = xbar_mvm_packed(a_u, w_mask, trq, k_i=pim.k_i, k_w=pim.k_w,
                                r_adc=pim.r_adc)
+    return PimOut(ptq_rescale(out, x, a_s, w_s, w_colsum, half_a, n), ops)
+
+
+def ptq_rescale(out: torch.Tensor, x: torch.Tensor, a_s, w_s,
+                w_colsum: torch.Tensor, half_a: int, n: int) -> torch.Tensor:
+    """The crossbar's (M, N) integer result -> ``x.dtype`` outputs: the
+    activation offset correction ``half_a * colsum(w_int)``, then the PTQ
+    rescale ``a_s * w_s``."""
     y = (out - half_a * w_colsum) * (a_s * torch.as_tensor(
         w_s, dtype=torch.float32, device=x.device))
-    return PimOut(y.reshape(*lead, n).to(x.dtype), ops)
+    return y.reshape(*x.shape[:-1], n).to(x.dtype)
 
 
 @register_backend("bit_exact")

@@ -1,6 +1,6 @@
 """Crossbar programming cache: weight-stationary PIM execution plans
-(port of ``repro.pim.plan`` for the exact, fake_quant, pallas and
-bit_exact backends).
+(port of ``repro.pim.plan``; ``pim.noise`` adds the noisy backend's
+recipe).
 
 ``prepare_params`` walks a model once — resolving each layer's SAR
 registers through the same param-path names the QuantState rule table uses
@@ -15,9 +15,10 @@ streams bf16 weights and widens them in registers, and fits the auto-range
 register in the same pass, so the plan holds no f32 image and no grouped
 copy), ``w_g`` (fake_quant: grouped weights), ``w_mask`` (bit_exact: the
 programmed cell planes, packed as ``xbar_mvm`` bit masks, 1 byte per
-weight) and ``w_colsum`` (bit_exact: the per-column sum of the int weights
-for the offset correction).  The kernels mask ragged edges themselves, so
-nothing is padded.
+weight), ``w_colsum`` (bit_exact: the per-column sum of the int weights
+for the offset correction) and ``w_analog``/``adc_off`` (noisy: the
+faulted conductances and ADC offsets a non-null device bakes).  The
+kernels mask ragged edges themselves, so nothing is padded.
 
 Unlike the reference, the port's layers are not stacked along a period
 axis: the plan is keyed by each ``PimLinear``'s module path
@@ -52,6 +53,8 @@ class LayerPlan:
     w_g: Optional[torch.Tensor] = None      # fake_quant
     w_mask: Optional[torch.Tensor] = None   # bit_exact: (k_w, G, N, 4) int32
     w_colsum: Optional[torch.Tensor] = None  # bit_exact: (N,) f32
+    w_analog: Optional[torch.Tensor] = None  # noisy: faulted conductances
+    adc_off: Optional[torch.Tensor] = None   # noisy: fixed-pattern offsets
     backend: str = "exact"
     auto_range: bool = False
     delta_grid: float = 1.0
@@ -64,11 +67,13 @@ class LayerPlan:
 class PimPlan:
     """A whole model's programming cache: ``layers`` maps each PimLinear's
     module path to its LayerPlan.  ``qs_token`` fingerprints the QuantState
-    the registers were resolved from."""
+    the registers were resolved from, ``cm_token`` the device side of the
+    CrossbarModel whose faults the plan bakes (``pim.noise``)."""
 
     layers: dict
     backend: str = "exact"
     qs_token: Optional[str] = None
+    cm_token: Optional[str] = None
 
     def __len__(self) -> int:
         return len(self.layers)
@@ -89,10 +94,12 @@ def quant_state_token(qs) -> Optional[str]:
 def prepare_linear(w: torch.Tensor, trq: Optional[TRQParams] = None, *,
                    backend: str = "exact", auto_range: bool = False,
                    delta_grid: float = 1.0, pim: PimConfig = PimConfig(),
-                   dtype=None) -> LayerPlan:
+                   dtype=None, crossbar_model=None) -> LayerPlan:
     """Program ONE (K, N) linear for ``backend``.  ``dtype`` is the compute
     dtype the layer will be called with: the frozen scale is computed on
-    the weights cast to it, as the dynamic path does."""
+    the weights cast to it, as the dynamic path does.  ``crossbar_model``
+    reaches backends whose recipe bakes device-side faults
+    (``@register_prepare_hook``)."""
     get_backend(backend)
     if w.ndim != 2:
         raise ValueError(f"prepare_linear wants (K, N), got {tuple(w.shape)}")
@@ -116,8 +123,26 @@ def prepare_linear(w: torch.Tensor, trq: Optional[TRQParams] = None, *,
         w_scale, w_mask, w_colsum = bit_exact_weights(w_cast, pim)
         return LayerPlan(w_scale=w_scale, w_mask=w_mask, w_colsum=w_colsum,
                          **kw)
+    hook = _PREPARE_HOOKS.get(backend)
+    if hook is not None:
+        return hook(w_cast, kw, crossbar_model)
     raise ValueError(f"backend {backend!r} has no prepared payload; serve "
                      f"it dynamically (plan=False)")
+
+
+# programming recipes of non-stock backends: ``fn(w_cast, kw,
+# crossbar_model) -> LayerPlan``, ``kw`` the common LayerPlan fields (the
+# noisy recipe registers itself when ``pim.noise`` is imported)
+_PREPARE_HOOKS: dict = {}
+
+
+def register_prepare_hook(name: str):
+    """Register the ``prepare_linear`` recipe of backend ``name``
+    (decorator); pair it with ``@register_prepared``."""
+    def _register(fn):
+        _PREPARE_HOOKS[name] = fn
+        return fn
+    return _register
 
 
 def has_prepared(backend: str) -> bool:
@@ -133,11 +158,14 @@ def iter_linears(model):
 
 def prepare_params(model, cfg, quant_state=None,
                    backend: Optional[str] = None,
-                   pim: PimConfig = PimConfig(), dtype=None) -> PimPlan:
+                   pim: PimConfig = PimConfig(), dtype=None,
+                   crossbar_model=None) -> PimPlan:
     """Program every ``PimLinear`` of ``model`` for ``backend`` (default
     ``cfg.pim_backend``).  Registers resolve through ``quant_state`` by the
     layer's QuantState name; layers with no rule freeze the model-wide
-    ``cfg.trq`` default and keep auto-ranging, as the dynamic path does."""
+    ``cfg.trq`` default and keep auto-ranging, as the dynamic path does.
+    ``crossbar_model`` is the simulated device a noise-aware recipe bakes;
+    its fingerprint rides the plan as ``cm_token``."""
     from ..models.layers import cdtype, trq_params_from_cfg
     backend = backend or cfg.pim_backend
     dtype = dtype if dtype is not None else cdtype(cfg)
@@ -151,9 +179,14 @@ def prepare_params(model, cfg, quant_state=None,
             layers[path] = prepare_linear(
                 lin.w, t if t is not None else default_trq, backend=backend,
                 auto_range=auto, delta_grid=cfg.trq.delta_grid, pim=pim,
-                dtype=dtype)
+                dtype=dtype, crossbar_model=crossbar_model)
+    # duck-typed (any model exposing .plan_token()), so plan never imports
+    # noise
+    cm_token = None if crossbar_model is None else \
+        crossbar_model.plan_token()
     return PimPlan(layers=layers, backend=backend,
-                   qs_token=quant_state_token(quant_state))
+                   qs_token=quant_state_token(quant_state),
+                   cm_token=cm_token)
 
 
 def check_plan(plan: PimPlan, model) -> PimPlan:

@@ -5,7 +5,8 @@
     (logits, cache, _), report = rt.apply(batch)       # report.ad_ops
 
 A ``Runtime`` owns the model on its device, the backend name, the
-per-layer ``QuantState``, the weight-stationary ``PimPlan`` and the entry
+per-layer ``QuantState``, the ``CrossbarModel`` of the simulated device,
+the weight-stationary ``PimPlan`` and the entry
 points ``prefill`` / ``prefill_cont`` / ``decode`` / ``apply`` / ``mvm``,
 each returning ``(out, AdOpsReport)``.  PyTorch runs eagerly, so there is
 nothing to jit; every entry point runs under ``torch.no_grad``.
@@ -18,12 +19,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.energy import adc_energy_pj
-from ..core.quant_state import QuantState
+from ..core.quant_state import QuantState, save_quant_state
 from ..device import resolve_device
 from ..models.layers import PimContext, pim_linear
 from ..models.lm import LM, init_cache
 from ..models.registry import build_model
 from ..pim.backend import get_backend
+from ..pim.noise import (CrossbarModel, active_crossbar_model,
+                         crossbar_token, is_noise_aware)
 from ..pim.plan import (PimPlan, check_plan, has_prepared, prepare_params,
                         quant_state_token)
 
@@ -50,12 +53,14 @@ class Runtime:
 
     def __init__(self, cfg: ModelConfig, model: LM, *, backend: str,
                  quant_state: Optional[QuantState], plan: Optional[PimPlan],
-                 device: torch.device, plan_enabled: bool = True):
+                 device: torch.device, plan_enabled: bool = True,
+                 crossbar_model: Optional[CrossbarModel] = None):
         self.cfg = cfg
         self.model = model
         self.backend = backend
         self.quant_state = quant_state
         self.plan = plan
+        self.crossbar_model = crossbar_model
         self.device = device
         self._plan_enabled = plan_enabled
         self.forward_calls = 0          # model forwards run by entry points
@@ -65,11 +70,15 @@ class Runtime:
                 f"plan={'yes' if self.plan is not None else 'no'}, "
                 f"quant_state="
                 f"{'yes' if self.quant_state is not None else 'no'}, "
+                f"crossbar_model="
+                f"{'yes' if self.crossbar_model is not None else 'no'}, "
                 f"device={self.device})")
 
     def _ctx(self) -> PimContext:
+        # the Runtime's device model wins over an ambient one, None included
         return PimContext(self.cfg, self.backend, self.quant_state,
-                          self.plan, self.device)
+                          self.plan, self.device,
+                          self.crossbar_model or _IDEAL)
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -142,41 +151,73 @@ class Runtime:
             y = pim_linear(lin, x.to(self.device), ctx)
         return y, AdOpsReport(ctx.ops)
 
-    # -- derivation ------------------------------------------------------------
+    # -- derivation / persistence ---------------------------------------------
 
     def with_overrides(self, *, backend: Optional[str] = None,
-                       quant_state=_UNSET, plan=_UNSET) -> "Runtime":
+                       quant_state=_UNSET, plan=_UNSET,
+                       crossbar_model=_UNSET) -> "Runtime":
         """A derived Runtime sharing the model; the plan is shared when its
-        (backend, QuantState fingerprint) still matches, else it is
-        re-programmed.  ``quant_state=None`` means "no registers"."""
+        (backend, QuantState fingerprint, CrossbarModel fingerprint) still
+        matches, else it is re-programmed.  Overrides are literal:
+        ``quant_state=None`` means "no registers", ``crossbar_model=None``
+        "ideal device"."""
         new_backend = backend or self.backend
         get_backend(new_backend)
         new_qs = self.quant_state if quant_state is _UNSET else quant_state
+        new_cm = self.crossbar_model if crossbar_model is _UNSET \
+            else crossbar_model
+        _check_model_backend(new_backend, new_cm)
         if plan is _UNSET:
             plan_enabled = self._plan_enabled
             if (self.plan is not None and self.plan.backend == new_backend
-                    and self.plan.qs_token == quant_state_token(new_qs)):
+                    and self.plan.qs_token == quant_state_token(new_qs)
+                    and self.plan.cm_token == crossbar_token(new_cm)):
                 built = check_plan(self.plan, self.model)
             else:
                 built = _build_plan(self.cfg, self.model, new_backend,
-                                    new_qs, plan_enabled)
+                                    new_qs, plan_enabled, new_cm)
         else:
             plan_enabled = plan is True or isinstance(plan, PimPlan)
             built = _build_plan(self.cfg, self.model, new_backend, new_qs,
-                                plan)
+                                plan, new_cm)
         return Runtime(self.cfg, self.model, backend=new_backend,
                        quant_state=new_qs, plan=built, device=self.device,
-                       plan_enabled=plan_enabled)
+                       plan_enabled=plan_enabled, crossbar_model=new_cm)
+
+    def save(self, path: str) -> Optional[str]:
+        """Snapshot the register file next to a checkpoint (the versioned
+        ``quant_state.json`` both packages read); returns the written path,
+        or None when the Runtime carries no QuantState."""
+        if self.quant_state is None:
+            return None
+        return save_quant_state(path, self.quant_state)
 
 
-def _build_plan(cfg, model, backend: str, quant_state, plan):
+_IDEAL = CrossbarModel()
+
+
+def _check_model_backend(backend: str, crossbar_model) -> None:
+    """A non-null CrossbarModel on a noise-blind backend would be silently
+    ignored: every MVM would run ideal while the caller believes faults
+    are injected.  Reject the combination."""
+    if (crossbar_model is not None and not crossbar_model.is_null
+            and not is_noise_aware(backend)):
+        raise ValueError(
+            f"crossbar_model carries non-idealities but backend "
+            f"{backend!r} is not noise-aware (it would silently ignore "
+            f"them); use backend='noisy' (or register_noise_aware)")
+
+
+def _build_plan(cfg, model, backend: str, quant_state, plan,
+                crossbar_model=None):
     """``True`` programs a plan (None when the backend has no prepared
-    path); a prebuilt ``PimPlan`` is validated; anything else is None."""
+    path); a prebuilt ``PimPlan`` is validated against the backend and the
+    QuantState and CrossbarModel fingerprints; anything else is None."""
     if plan is True:
         if not has_prepared(backend):
             return None
         return prepare_params(model, cfg, quant_state=quant_state,
-                              backend=backend)
+                              backend=backend, crossbar_model=crossbar_model)
     if isinstance(plan, PimPlan):
         if plan.backend != backend:
             raise ValueError(f"plan was programmed for backend "
@@ -185,6 +226,10 @@ def _build_plan(cfg, model, backend: str, quant_state, plan):
         if plan.qs_token != quant_state_token(quant_state):
             raise ValueError("plan was programmed against a different "
                              "QuantState than this Runtime executes")
+        if plan.cm_token != crossbar_token(crossbar_model):
+            raise ValueError("plan was programmed against a different "
+                             "CrossbarModel (or fault seed) than this "
+                             "Runtime executes")
         return check_plan(plan, model)
     return None
 
@@ -192,7 +237,8 @@ def _build_plan(cfg, model, backend: str, quant_state, plan):
 def compile(cfg: ModelConfig, params: Any, *, device=None,
             backend: Optional[str] = None,
             quant_state: Optional[QuantState] = None,
-            plan: Any = True) -> Runtime:
+            plan: Any = True,
+            crossbar_model: Optional[CrossbarModel] = None) -> Runtime:
     """Build a :class:`Runtime` on ``device`` (default ``cuda``; without a
     GPU, ``device="cpu"`` must be given).
 
@@ -200,18 +246,25 @@ def compile(cfg: ModelConfig, params: Any, *, device=None,
     ``convert.from_jax``); its tensors move to the device.  ``backend``
     defaults to ``cfg.pim_backend``.  ``plan=True`` programs the
     weight-stationary plan, a prebuilt ``PimPlan`` is validated, and
-    ``False``/``None`` serves dynamically.  TF32 is switched off: the
+    ``False``/``None`` serves dynamically.  ``crossbar_model`` defaults to
+    the ambient ``use_crossbar_model`` one; a non-null model on a
+    noise-blind backend raises ``ValueError``.  TF32 is switched off: the
     reference's dots run at full f32 precision."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     backend = backend or cfg.pim_backend
     get_backend(backend)
+    if crossbar_model is None:
+        crossbar_model = active_crossbar_model()
+    _check_model_backend(backend, crossbar_model)
     model = build_model(cfg)
     model.load_state_dict({k: v.to(device) for k, v in params.items()},
                           assign=True)
     model.eval()
     plan_enabled = plan is True or isinstance(plan, PimPlan)
-    built = _build_plan(cfg, model, backend, quant_state, plan)
+    built = _build_plan(cfg, model, backend, quant_state, plan,
+                        crossbar_model)
     return Runtime(cfg, model, backend=backend, quant_state=quant_state,
-                   plan=built, device=device, plan_enabled=plan_enabled)
+                   plan=built, device=device, plan_enabled=plan_enabled,
+                   crossbar_model=crossbar_model)

@@ -81,6 +81,19 @@ def scatter_cache(big: dict, small: dict, slot: int) -> dict:
     return out
 
 
+def _attn_only(cfg) -> bool:
+    """Prefix reuse needs every mixer to be attention: K/V blocks are a
+    pure function of the prefix, while recurrent (mamba/rwkv) prefixes
+    would need chunk-aligned state snapshots whose scan boundaries change
+    the float associativity (not bitwise vs the monolithic prefill)."""
+    try:
+        kinds = {cfg.layer_kind(i)[0] for i in range(cfg.period)}
+    except (AttributeError, TypeError):
+        return False
+    return (kinds == {"attn"} and cfg.encoder_layers == 0
+            and cfg.frontend == "none")
+
+
 class ServeEngine:
     """Continuous-batching serving loop around a compiled ``Runtime``."""
 
@@ -96,7 +109,7 @@ class ServeEngine:
         self.max_len = max_len
         self.device = rt.device
         self.paged = paged
-        self.prefix_reuse = prefix_reuse and paged
+        self.prefix_reuse = prefix_reuse and paged and _attn_only(self.cfg)
         if paged:
             self.kv = PagedKVCache(self.cfg, max_batch, max_len,
                                    block_size=min(block_size, max_len),

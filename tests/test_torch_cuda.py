@@ -272,3 +272,36 @@ def test_calibration_scores_through_trq_quant(card):
             float(got.params.delta_r1), float(got.params.bias)) == (
         want.chosen, want.params.n_r1, want.params.n_r2, want.params.m,
         float(want.params.delta_r1), float(want.params.bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "bit_exact", "noisy"])
+@pytest.mark.parametrize("scan", [True, False])
+def test_census_sums_to_the_engine_total_on_the_card(card, backend, scan):
+    """The per-layer census of a served trace adds up to the engine's
+    metered total bit for bit, with every value a 0-dim int64 tensor on
+    the card; with no tally open the same trace meters the same total."""
+    from repro_torch import runtime
+    from repro_torch.models.registry import get_config, init
+    from repro_torch.pim import ad_ops_tally
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("llama3.2-3b", smoke=True).replace(
+        pim_backend=backend, param_dtype="bfloat16", scan_layers=scan)
+    rt = runtime.compile(cfg, init(cfg, seed=0, device=card))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (12, 20, 9)]
+    totals = []
+    for tally in (True, False):
+        eng = ServeEngine(rt, max_batch=2, max_len=64)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=3)
+        if tally:
+            with ad_ops_tally() as t:
+                eng.run()
+        else:
+            eng.run()
+        totals.append(eng.stats()["total_ad_ops"])
+    assert len(t.by_layer) == 7 * (1 if scan else cfg.n_layers)
+    assert all(v.device.type == "cuda" and v.dtype == torch.int64
+               for v in t.by_layer.values())
+    assert t.total() == totals[0] == totals[1] > 0

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and no line of
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the machine
-with the card has no JAX; configs and helpers are copied instead)."""
+"""The port stands alone: no module of ``src/repro_torch``, no line of
+``chip_smoke.py`` and none of the port's example and benchmarks imports
+``jax`` or the JAX package ``repro`` (the machine with the card has no JAX;
+configs and helpers are copied instead)."""
 import ast
 import pathlib
 
@@ -8,7 +9,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_trq_torch.py",
+    ROOT / "benchmarks" / "serve_bench_torch.py",
+    ROOT / "benchmarks" / "noise_sweep_torch.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -38,7 +41,9 @@ def test_the_walk_sees_the_port():
     sources = {p.name for p in (ROOT / "src" / "repro_torch").rglob("*.cu")}
     assert {"trq_group_mvm.cu", "trq_quant.cu", "xbar_mvm.cu"} <= sources
     for mod in ("core/calibrate.py", "core/distribution.py",
-                "kernels/trq_quant/ops.py", "kernels/xbar_mvm/ops.py"):
+                "kernels/trq_quant/ops.py", "kernels/xbar_mvm/ops.py",
+                "telemetry/__init__.py", "telemetry/serve_report.py",
+                "pim/noise.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 

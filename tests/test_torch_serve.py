@@ -145,3 +145,37 @@ def test_launch_serve_cli_runs_on_cpu(capsys):
                         "8", "--max-len", "64"]) == 0
     out = capsys.readouterr().out
     assert "served 3 requests, 9 tokens" in out
+
+
+# the reference configs whose fields mark a recurrent mixer (rwkv6, jamba's
+# mamba), an encoder (whisper) or a patch frontend (internvl2)
+GATE_ARCHS = ["llama3.2-3b", "rwkv6-7b", "jamba-v0.1-52b", "whisper-medium",
+              "internvl2-76b"]
+
+
+def _port_config(arch):
+    """The reference's smoke config of ``arch``, field for field, as a port
+    ``ModelConfig`` (the port's registry holds only llama)."""
+    import dataclasses
+    from repro_torch.configs.base import ModelConfig, TRQConfig
+    jcfg = jget_config(arch, smoke=True)
+    kw = {f.name: getattr(jcfg, f.name)
+          for f in dataclasses.fields(ModelConfig)}
+    kw["trq"] = TRQConfig(**dataclasses.asdict(jcfg.trq))
+    return jcfg, ModelConfig(**kw)
+
+
+@pytest.mark.parametrize("arch", GATE_ARCHS)
+def test_prefix_reuse_gate_matches_the_reference(arch):
+    """Reuse stays on only where every mixer is attention, with no encoder
+    and no frontend: the port's gate equals the reference's ``_attn_only``
+    on each config, and the engine applies it."""
+    import types
+    from repro.serve.engine import _attn_only as jattn_only
+    from repro_torch.serve.engine import _attn_only
+    jcfg, cfg = _port_config(arch)
+    assert _attn_only(cfg) == jattn_only(jcfg) == (arch == "llama3.2-3b")
+    stub = types.SimpleNamespace(cfg=cfg, plan=None, quant_state=None,
+                                 device=torch.device("cpu"))
+    eng = ServeEngine(stub, max_batch=1, max_len=32, prefix_reuse=True)
+    assert eng.prefix_reuse == _attn_only(cfg)
