@@ -4,8 +4,8 @@ throughput, TTFT and per-request A/D conversions (a port of
 ``benchmarks/serve_bench.py``).
 
   PYTHONPATH=src python -m benchmarks.serve_bench_torch --out out/serve.json
-      # the card: full-width llama3.2-3b, seeded weights, --backend pallas
-      # (default) or bit_exact
+      # the card: full-width llama3.2-3b (and rwkv6-7b in mixed_archs),
+      # seeded weights, --backend pallas (default) or bit_exact
   PYTHONPATH=src python -m benchmarks.serve_bench_torch --device cpu --quick \
       --out out/serve_cpu.json
       # the CPU: the smoke config, --backend fake_quant (default)
@@ -17,9 +17,10 @@ gates):
   served with prefix reuse on and off, so the A/D-conversion saving of
   hash-consed prefix pages is a recorded number;
 * ``long_context`` — few requests with prompts near ``max_len``;
-* ``mixed_archs`` — one small trace per architecture family.  Only the
-  llama part runs: the port has no rwkv6 or whisper yet, which the record
-  says in ``pending_archs``.
+* ``mixed_archs`` — one small trace per architecture family: llama3.2-3b
+  (attention) and rwkv6-7b (recurrent, no paged leaf, no prefix reuse).
+  The port has no whisper yet (the reference's full run serves it), which
+  the record says in ``pending_archs``.
 
 The JSON keeps the reference's record layout (``{"bench": "serve",
 "quick", "scenarios": {...}}``) plus the device, backend and width it ran
@@ -37,9 +38,9 @@ import time
 import numpy as np
 
 ARCH = "llama3.2-3b"
+RECURRENT_ARCH = "rwkv6-7b"
 # the reference's mixed_archs families the port does not serve yet
 PENDING_ARCHS = {
-    "rwkv6-7b": "not ported: ROADMAP.md queue 1, item 3 (rwkv6)",
     "whisper-medium": "not ported: ROADMAP.md queue 1, item 3 (enc-dec)",
 }
 
@@ -109,7 +110,7 @@ def chat_prompts(vocab: int, quick: bool) -> list:
             for _ in range(4 if quick else 8)]
 
 
-def shared_prefix_chat(built, quick: bool) -> dict:
+def shared_prefix_chat(built, quick: bool, weights=None) -> dict:
     prompts = chat_prompts(built[0].vocab_size, quick)
     max_new = 4 if quick else 8
     with_reuse, eng_on = serve(built, prompts, max_new=max_new, reuse=True)
@@ -133,7 +134,7 @@ def shared_prefix_chat(built, quick: bool) -> dict:
     return with_reuse
 
 
-def long_context(built, quick: bool) -> dict:
+def long_context(built, quick: bool, weights=None) -> dict:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, built[0].vocab_size, 100)
                for _ in range(2 if quick else 4)]
@@ -141,19 +142,34 @@ def long_context(built, quick: bool) -> dict:
                  reuse=True)[0]
 
 
-def mixed_archs(built, quick: bool) -> dict:
-    """The llama part of the reference's scenario; the aggregates are over
-    the archs served here."""
+def mixed_prompts(vocab: int) -> list:
+    """The mixed-archs trace: prompts of 12, 24 and 7 tokens."""
     rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, built[0].vocab_size, n) for n in (12, 24, 7)]
-    rec = serve(built, prompts, max_new=3 if quick else 6, max_len=64)[0]
-    pending = ["rwkv6-7b"] if quick else ["rwkv6-7b", "whisper-medium"]
-    return {"archs": {built[0].name: rec},
-            "pending_archs": {a: PENDING_ARCHS[a] for a in pending},
-            "tokens_per_s": rec["tokens_per_s"],
-            "mean_ad_ops_per_request": rec["mean_ad_ops_per_request"]}
+    return [rng.integers(0, vocab, n) for n in (12, 24, 7)]
 
 
+def mixed_archs(built, quick: bool, weights=None) -> dict:
+    """The reference's scenario: the same trace on ``built`` (llama) and on
+    rwkv6-7b, built on the same backend and device with ``weights``; the
+    aggregates are over the archs served here."""
+    _, rt = built
+    out = {"archs": {}}
+    for b in (built, build(RECURRENT_ARCH, rt.backend, rt.device, weights)):
+        prompts = mixed_prompts(b[0].vocab_size)
+        out["archs"][b[0].name] = serve(b, prompts,
+                                        max_new=3 if quick else 6,
+                                        max_len=64)[0]
+    if not quick:
+        out["pending_archs"] = dict(PENDING_ARCHS)
+    recs = out["archs"].values()
+    out["tokens_per_s"] = float(np.mean([r["tokens_per_s"] for r in recs]))
+    out["mean_ad_ops_per_request"] = float(np.mean(
+        [r["mean_ad_ops_per_request"] for r in recs]))
+    return out
+
+
+# each takes (built, quick, weights); ``weights`` builds any other arch the
+# scenario serves
 SCENARIOS = {
     "shared_prefix_chat": shared_prefix_chat,
     "long_context": long_context,
@@ -182,7 +198,7 @@ def run(quick: bool = False, only=None, device="cuda",
         if only and name not in only:
             continue
         t0 = time.time()
-        report["scenarios"][name] = fn(built, quick)
+        report["scenarios"][name] = fn(built, quick, weights)
         report["scenarios"][name]["suite_wall_s"] = time.time() - t0
         print(f"serve_bench_torch.{name},"
               f"{report['scenarios'][name]['suite_wall_s'] * 1e6:.0f},ok")

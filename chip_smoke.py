@@ -15,11 +15,17 @@ which fails the run on any error:
            projection shapes, ragged 3 x 300 x 130 and 5 x 700 x 136 (the
            TMA body's zero-filled edges): exact on integer-
            valued inputs, and on bf16-valued random floats within the
-           float bar (rtol=atol=1e-5 on at least 99.9 % of elements, any
+           float bar (rtol=atol=1e-5 on at least 99.9 % of elements, read
+           on at least 65,536 outputs: a case of fewer is drawn again
+           until it has that many; any
            other element within one coarse quantizer step per 128-row
            group: a boundary flip from another f32 summation order), and
-           on the ``w_gate`` of one 2,048-token prefill; times of the whole
-           call (both passes) at M = 4, 16, 64 and that prefill beside the
+           on the ``w_gate`` of one 2,048-token prefill; rwkv6-7b's four
+           projection shapes (4,096 -> 4,096 / 14,336 / 65,536 and 14,336
+           -> 4,096) at M = 1, 2, 4, 8, 16, 32 and 64, exact and at the
+           float bar with equal ops; times of the whole call (both passes)
+           at M = 4, 16, 64 and that prefill (on rwkv6's shapes, at those
+           phase 11's trace gives the kernel, ``RWKV_PATH``) beside the
            bound (bf16 weights read at 2 bytes each): the device time (20
            launches, each after an L2 flush, replayed as one CUDA graph,
            less the flushes), the time of one call as a caller sees it,
@@ -40,7 +46,10 @@ which fails the run on any error:
            version of the same math) against ``pallas``: finite logits,
            equal A/D ops, and a relative L2 distance within 3x that of a
            control (``fake_quant`` against itself with f64 partial sums),
-           or 1e-2 if that is larger;
+           or 1e-2 if that is larger; the relative L2 of the residual
+           stream after four depths, held to the same bar against its own
+           control at every depth where that control reads at most 0.1
+           (layer 0 among them, or the check fails);
 5. K2      ``trq_quant`` against its plain version on the card, registers of
            ``tests/test_kernels.py::PARAM_GRID`` in signed, unsigned and
            uniform modes, f32 and f16 input: q bitwise equal (atol=0) and
@@ -49,7 +58,8 @@ which fails the run on any error:
            written per element);
 6. K3      ``xbar_mvm`` against its plain version at the four projection
            shapes for M = 1, 4, 16, 17 and 64 (decode, continued prefill,
-           prefill and the ragged tiles), ragged 3 x 300 x 130, and one
+           prefill and the ragged tiles), rwkv6-7b's four projection shapes
+           at M = 1, 2, 4, 8, 16, 32 and 64, ragged 3 x 300 x 130, and one
            shape with k_i = k_w = 4 (the general body), with the default
            registers, a fractional step and the lossless mode: op counts
            (total and per output) exactly equal everywhere; y bitwise equal
@@ -58,7 +68,8 @@ which fails the run on any error:
            version alike, within the recursive-summation bound
            k_i k_w G u |y| (u = 2^-24) of the f64 control; each kernel
            body's shapes (the wrapper's shape plan) are printed; timed at
-           M = 4, 16 and 64 beside the bound (packed bytes at 3.35 TB/s or
+           M = 4, 16 and 64 (on rwkv6's shapes, at phase 11's) beside the
+           bound (packed bytes at 3.35 TB/s or
            the 0/1 products at the card's one-bit tensor-core rate,
            ``B1_OPS_PER_S``) and ``torch._int_mm`` on the unpacked int8 0/1
            planes, (k_i M, K) @ (K, k_w N), as a yardstick (the same
@@ -102,10 +113,33 @@ which fails the run on any error:
            there lie within 6 standard errors of the model's parameters.
            (A non-null plan holds f32 analog planes, 32 bytes a weight:
            a full-width model would not fit the card.)
+11. rwkv6  full-width rwkv6-7b (32 layers, d=4,096, 64 heads of 64,
+           d_ff=14,336, vocab 65,536, an untied ``lm_head``; bf16, seeded
+           random weights) on the prepared ``pallas`` datapath, then on
+           ``bit_exact``, through ``benchmarks/serve_bench_torch.py``'s
+           mixed-archs trace (prompts of 12, 24 and 7 tokens, 6 new tokens
+           each, max_len 64, max batch 2, greedy): every forward launches
+           K1 (then K3) 257 times (32 x 8 projections and the
+           ``lm_head``); every request's A/D ops equal the closed form (a
+           token row that reaches every projection converts 67,108,864
+           times, a prefill row that stops before the ``lm_head``
+           65,011,712 times, 7 ops each, 64 bit-line conversions each on
+           ``bit_exact``); tokens/s and mean TTFT; a ``torch.profiler``
+           reading of one batch-2 decode step on each datapath (K1/K3, the
+           WKV and the norms, device idle share); finite logits, and a
+           full-width prefill on ``fake_quant`` against ``pallas`` at the
+           phase-4 bar (its per-depth gate reaches layer 0 only: the
+           recurrence amplifies quantizer-step flips, so the control grows
+           past 0.1 by layer 8); the same prefill on ``bit_exact`` through K3's plain
+           version at the phase-7 bar; and the chunked WKV scan of a
+           prefill against the
+           per-token recurrence (the state it carries and its outputs), at
+           the model's head shapes and through layer 0's time-mix.
 
-Kernel launch counts are reset just before each main path (phase 3 for
-K1, phase 7 for K3, the calibration of phase 8 for K2) and read just
-after; launches that compare a kernel with its plain version do not count.
+Kernel launch counts are reset just before each main path (phase 3 and
+phase 11 for K1, phase 7 and phase 11 for K3, the calibration of phase 8
+for K2) and read just after; launches that compare a kernel with its
+plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -117,6 +151,7 @@ of the port (the parent commit's too, for a before-and-after in one call).
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -135,6 +170,25 @@ K1_TIMED_MS = (4, 16, 64, 2048)    # decode, prefill_cont, prefill, long
 LONG_PREFILL = (2048, 3072, 8192)  # w_gate of a 2,048-token prefill
 TMA_RAGGED = (5, 700, 136)         # ragged M, K, N on K1's TMA body
 HEADLINE_SHAPE = (4, 3072, 8192)   # decode w_gate / w_up
+RWKV_ARCH = "rwkv6-7b"
+RWKV_LAYERS = 32
+RWKV_PROJ_PER_LAYER = 8            # w_r w_k w_v w_g w_o w_gate w_up w_down
+# (K, N) of w_r/w_k/w_v/w_g/w_o, w_gate/w_up, w_down and the lm_head
+RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096), (4096, 65536))
+# phases 2 and 6: rows checked at rwkv6's shapes (every M of phase 11's
+# trace, 1, 2, 8, 16 and 32, and llama's 4 and 64)
+RWKV_MS = (1, 2, 4, 8, 16, 32, 64)
+# the shapes phase 11's trace gives K1 and K3, where both are timed: the
+# batch-2 decode step (every projection and the lm_head), prefills in the
+# buckets of 8, 16 and 32 rows, and the prefill's lm_head on its last row
+RWKV_PATH = sorted({(2, k, n) for k, n in RWKV_KN}
+                   | {(m, k, n) for m in (8, 16, 32) for k, n in RWKV_KN[:3]}
+                   | {(1,) + RWKV_KN[3]})
+RWKV_ROW = 67_108_864              # conversions of a row through all 257
+RWKV_PREFILL_ROW = 65_011_712      # ... of a prefill row (no lm_head)
+MIXED_NEW = 6                      # the mixed-archs trace's new tokens
+MIXED_BATCH = 2
+WKV_TOL = 1e-4                     # phase 11: scan against recurrence
 PARAM_GRID = [dict(n_r1=4, n_r2=4, m=3, bias=0.0),    # tests/test_kernels.py
               dict(n_r1=2, n_r2=6, m=1, bias=0.0),
               dict(n_r1=3, n_r2=5, m=4, bias=3.0),
@@ -145,8 +199,11 @@ F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
 FLOAT_TOL = 1e-5
 MAX_FLIP_FRACTION = 1e-3
+FLIP_SAMPLE = 2 ** 16              # phase 2: least outputs a case's flip
+                                   # rate is read on
 LOGIT_CTRL_FACTOR = 3.0           # phase 4: pallas within 3x the control
 LOGIT_REL_FLOOR = 1e-2
+DEPTH_CTRL_MAX = 0.1               # phases 4, 11: depths held to the bar
 # one-bit AND-popcount tensor cores (K3's type): the data sheet gives no
 # rate, so the highest that tools/k3_mma_rates.cu measured (mma.m16n8k256,
 # an H100 80GB HBM3 at 700 W)
@@ -162,6 +219,8 @@ K3_REGS = [("default", dict(delta_r1=1.0, n_r1=6, n_r2=6, m=4), 1.0),
 TRACE_BATCH = 4                    # the engine's max batch in the trace
 SLICES = 8 * 8                     # k_i x k_w bit-line conversions per group
 K3_MS = (1, 4, 16, 17, 64)         # phase 6: rows checked (every row tile)
+PLAIN_BYTES = 2 ** 31              # phase 6: the plain version in column
+                                   # blocks of at most this much psum
 K3_TIMED_MS = (4, 16, 64)          # decode, prefill_cont, prefill
 K3_NARROW = (16, 3072, 1024, 4)    # M, K, N, k_i = k_w: the general body
 BIT_EXACT_REL_BAR = 1e-2           # phase 7: plain vs K3 logits
@@ -270,7 +329,8 @@ def bound(m: int, k: int, n: int, w_bytes: int = 2):
 
 def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     """K1 against its plain version, registers given and auto-ranged, bf16
-    and f32 weights; timed at the main path's shapes (M = 4, 16, 64) and
+    and f32 weights; timed at the main paths' shapes (llama's M = 4, 16,
+    64, ``RWKV_PATH``) and
     at one long prefill, where the (M, G, N) scratch is largest."""
     from repro_torch.core.trq import make_params
     from repro_torch.kernels.trq_group_mvm import pack_scalars
@@ -290,6 +350,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     # -- exact: integer operands, power-of-two grid and steps --------------
     default = dict(n_r1=6, n_r2=6, m=4)
     cases = [((m, k, n), default) for m in K1_MS for k, n in PROJ_KN]
+    cases += [((m, k, n), default) for m in RWKV_MS for k, n in RWKV_KN]
     cases += [((3, 300, 130), default), (TMA_RAGGED, default)]
     cases += [(shape, r) for shape in ((64, 3072, 1024), (3, 300, 130))
               for r in R1_REGS]
@@ -314,9 +375,9 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
                         f"{float((y - y_r).abs().max())}, ops {int(ops)} vs "
                         f"{int(ops_r)}")
                 n_exact += 1
-    log(f"  exact: {n_exact} integer cases (M in {K1_MS} at the four "
-        f"projection shapes, 3x300x130 and {TMA_RAGGED}; bf16 and f32 "
-        f"weights; registers "
+    log(f"  exact: {n_exact} integer cases (M in {K1_MS} at llama's four "
+        f"projection shapes, M in {RWKV_MS} at rwkv6's four, 3x300x130 and "
+        f"{TMA_RAGGED}; bf16 and f32 weights; registers "
         f"given and auto-ranged): y bitwise equal, ops equal")
 
     # -- float: bf16-valued operands, registers given and auto-ranged ------
@@ -324,46 +385,64 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases = [((m, k, n), default, wdt, auto)
              for m in K1_MS for k, n in PROJ_KN for wdt in wdtypes
              for auto in (False, True)]
+    cases += [((m, k, n), default, torch.bfloat16, auto)
+              for m in RWKV_MS for k, n in RWKV_KN for auto in (False, True)]
     cases += [((64, 3072, 1024), r, torch.bfloat16, True) for r in R1_REGS]
     cases += [(shape, default, wdt, True) for wdt in wdtypes
               for shape in ((3, 300, 130), TMA_RAGGED)]
     cases += [(LONG_PREFILL, default, torch.bfloat16, True)]
     for (m, k, n), rk, wdt, auto in cases:
-        a = torch.randn(m, k, generator=gen, device=dev).bfloat16().float()
-        w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
-             ).to(torch.bfloat16).to(wdt)
-        a_s, w_s = _dynamic_scales(a, w.float(), None, None)
-        grid = grid_scale(a_s, w_s, 1.0, dev)
-        p = make_params(signed=True, device=dev, **rk)
-        fitted = auto_range_fit(a, w.float(), p, grid)
-        s = pack_scalars(p if auto else fitted, grid, dev)
-        kw = dict(regs_of(p), auto_range=auto)
-        y, ops = trq_group_mvm_cuda(a, w, s, **kw)
-        y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
-        torch.cuda.synchronize()
+        # the flip bar is a rate: a case of few outputs is drawn again
+        # until it has FLIP_SAMPLE of them, each draw held to the rest
+        draws = -(-FLIP_SAMPLE // (m * n))
         g = -(-k // 128)
-        err = (y - y_r).abs()
-        close = err <= FLOAT_TOL + FLOAT_TOL * y_r.abs()
-        flips = int((~close).sum())
-        step = float(fitted.delta_r2 * grid)         # one coarse step
-        worst = float(err.max())
-        d_ops = abs(int(ops) - int(ops_r))
-        ok = (flips <= MAX_FLIP_FRACTION * y.numel()
-              and worst <= g * step * (1 + FLOAT_TOL) + FLOAT_TOL
-              and d_ops <= flips * g * abs(p.n_r2 - p.n_r1)
-              and bool(torch.isfinite(y).all()))
+        flips = elements = ops_k = ops_p = 0
+        worst = step = 0.0
+        ok = True
+        for _ in range(draws):
+            a = torch.randn(m, k, generator=gen, device=dev
+                            ).bfloat16().float()
+            w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+                 ).to(torch.bfloat16).to(wdt)
+            a_s, w_s = _dynamic_scales(a, w.float(), None, None)
+            grid = grid_scale(a_s, w_s, 1.0, dev)
+            p = make_params(signed=True, device=dev, **rk)
+            fitted = auto_range_fit(a, w.float(), p, grid)
+            s = pack_scalars(p if auto else fitted, grid, dev)
+            kw = dict(regs_of(p), auto_range=auto)
+            y, ops = trq_group_mvm_cuda(a, w, s, **kw)
+            y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
+            torch.cuda.synchronize()
+            err = (y - y_r).abs()
+            close = err <= FLOAT_TOL + FLOAT_TOL * y_r.abs()
+            flips_d = int((~close).sum())
+            step_d = float(fitted.delta_r2 * grid)   # one coarse step
+            worst_d = float(err.max())
+            ok = ok and (
+                worst_d <= g * step_d * (1 + FLOAT_TOL) + FLOAT_TOL
+                and abs(int(ops) - int(ops_r))
+                <= flips_d * g * abs(p.n_r2 - p.n_r1)
+                and bool(torch.isfinite(y).all()))
+            flips += flips_d
+            elements += y.numel()
+            ops_k, ops_p = ops_k + int(ops), ops_p + int(ops_r)
+            if worst_d >= worst:
+                worst, step = worst_d, step_d
+        ok = ok and flips <= MAX_FLIP_FRACTION * elements
         rec["max_abs_err"] = max(rec["max_abs_err"], worst)
         rec["flips"] += flips
-        rec["elements"] += y.numel()
+        rec["elements"] += elements
         wname = "bf16" if wdt == torch.bfloat16 else "f32"
         line = (f"  float  {m:>3}x{k:>5}x{n:>5} {wname} "
                 f"{'auto ' if auto else 'given'} {rk}: flips {flips}/"
-                f"{y.numel()}, max err {worst:.3e} (coarse step "
-                f"{step:.3e}), ops {int(ops)} vs {int(ops_r)}")
+                f"{elements} in {draws} draw{'s' * (draws > 1)}, max err "
+                f"{worst:.3e} (coarse step {step:.3e}), ops {ops_k} vs "
+                f"{ops_p}")
         if not ok:
             raise AssertionError("K1 outside the float bar:" + line)
-        if (k, n) in PROJ_KN and m in K1_TIMED_MS and auto and \
-                wdt == torch.bfloat16 and rk is default:
+        if ((k, n) in PROJ_KN and m in K1_TIMED_MS or (m, k, n) in
+                RWKV_PATH) and auto and wdt == torch.bfloat16 and \
+                rk is default:
             kern = lambda: trq_group_mvm_cuda(a, w, s, **kw)  # noqa: E731
             ms = device_ms(torch, kern, 20, flush)
             per_call = call_ms(torch, kern, 20, flush)
@@ -513,33 +592,38 @@ def wall_ms(torch, fn, reps: int = 5) -> float:
     return sorted(times)[reps // 2]
 
 
-def forward_times(torch, rt, prompt) -> dict:
-    """One batch-4 decode step and one 64-token prefill, host clock."""
+def forward_times(torch, rt, prompt, batch: int = TRACE_BATCH,
+                  max_len: int = 256) -> dict:
+    """One batch-``batch`` decode step and one prefill of ``prompt``, host
+    clock."""
     import numpy as np
-    dec_cache = rt.init_cache(TRACE_BATCH, 256)
-    dec_toks = np.zeros((TRACE_BATCH, 1), np.int32)
-    return dict(
-        decode_step_ms=wall_ms(torch, lambda: rt.decode(dec_toks,
-                                                         dec_cache)),
-        prefill64_ms=wall_ms(torch, lambda: rt.prefill(prompt[None],
-                                                        max_len=256)))
+    dec_cache = rt.init_cache(batch, max_len)
+    dec_toks = np.zeros((batch, 1), np.int32)
+    return {"decode_step_ms": wall_ms(torch, lambda: rt.decode(
+                dec_toks, dec_cache)),
+            f"prefill{len(prompt)}_ms": wall_ms(torch, lambda: rt.prefill(
+                prompt[None], max_len=max_len))}
 
 
 @contextlib.contextmanager
 def labelled_spans(torch):
-    """Wrap the port's projection, auto-range pre-fit and attention
-    functions in ``torch.profiler.record_function`` spans, so a trace can
-    attribute device time to them (the package itself carries no spans).
-    A function the package does not have (the pre-fit after it was folded
-    into K1) is left out."""
-    from repro_torch.models import attention, layers
+    """Wrap the port's projection, auto-range pre-fit, attention, WKV and
+    norm functions in ``torch.profiler.record_function`` spans, so a trace
+    can attribute device time to them (the package itself carries no
+    spans).  A function the package does not have (the pre-fit after it
+    was folded into K1) is left out."""
+    from repro_torch.models import attention, layers, rwkv6
     from repro_torch.pim import plan
     targets = [(layers, "pim_linear", "projections"),
                (plan, "auto_range_fit_grouped", "pre-fit"),
                (attention, "full_attention", "attention"),
                (attention, "chunked_attention", "attention"),
                (attention, "decode_attention", "attention"),
-               (attention, "_scatter_time", "attention")]
+               (attention, "_scatter_time", "attention"),
+               (rwkv6, "wkv_scan", "wkv"),
+               (rwkv6, "wkv_step", "wkv"),
+               (rwkv6, "head_norm", "norm"),
+               (layers, "rmsnorm", "norm")]
     saved = []
 
     def wrap(fn, label):
@@ -589,7 +673,7 @@ def profile_forward(torch, fn) -> dict:
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
-    labels = ("projections", "pre-fit", "attention")
+    labels = ("projections", "pre-fit", "attention", "wkv", "norm")
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and e.name not in labels             # the spans' device mirrors
            and not getattr(e, "is_user_annotation", False)]
@@ -623,15 +707,17 @@ def profile_forward(torch, fn) -> dict:
     return out
 
 
-def profile_forwards(torch, rt, prompt) -> dict:
-    """The profile of one batch-4 decode step and one 64-token prefill."""
+def profile_forwards(torch, rt, prompt, batch: int = TRACE_BATCH,
+                     max_len: int = 256) -> dict:
+    """The profile of one batch-``batch`` decode step and one prefill of
+    ``prompt``."""
     import numpy as np
-    dec_cache = rt.init_cache(TRACE_BATCH, 256)
-    dec_toks = np.zeros((TRACE_BATCH, 1), np.int32)
+    dec_cache = rt.init_cache(batch, max_len)
+    dec_toks = np.zeros((batch, 1), np.int32)
     out = {}
     for key, fn in (("decode_step", lambda: rt.decode(dec_toks, dec_cache)),
-                    ("prefill64", lambda: rt.prefill(prompt[None],
-                                                     max_len=256))):
+                    (f"prefill{len(prompt)}", lambda: rt.prefill(
+                        prompt[None], max_len=max_len))):
         p = out[key] = profile_forward(torch, fn)
         if not p["measured"]:
             log(f"  profile of one {key}: device time not measured (the "
@@ -644,7 +730,8 @@ def profile_forwards(torch, rt, prompt) -> dict:
             f"{p['k1_kernels']} kernels, K3 {p['k3_ms']:.2f} ms in "
             f"{p['k3_kernels']} kernels, projections "
             f"{p['projections_ms']:.2f} ms, pre-fit {p['pre-fit_ms']:.2f} "
-            f"ms, attention {p['attention_ms']:.2f} ms")
+            f"ms, attention {p['attention_ms']:.2f} ms, wkv "
+            f"{p['wkv_ms']:.2f} ms, norms {p['norm_ms']:.2f} ms")
         for t in p["top_kernels"]:
             log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
     return out
@@ -676,14 +763,13 @@ def compile_pallas(torch, cfg, device: str = "cuda"):
 
 def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     from repro_torch.kernels.trq_group_mvm import kernel as k1
-    import numpy as np
 
     t = cfg.trq
     assert (t.n_r1, t.n_r2, t.auto_range) == (6, 6, True)
     rt, gib = compile_pallas(torch, cfg, device)
 
     run = run_trace(torch, rt, cfg, k1, "K1")
-    rec["launches"] = run["launches"]
+    rec["launches_by_path"][cfg.name] = run["launches"]
     # closed form of the op total: with n_r1 == n_r2 every conversion costs
     # nu + n_r = 7 ops
     want = 7 * cfg.n_layers * conversions_per_token(cfg) * run["rows"]
@@ -704,36 +790,73 @@ def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
         f"{serve['prefill64_ms']:.1f} ms")
     serve["profile"] = profile_forwards(torch, rt, prompts[0])
 
-    # -- phase 4: fake_quant (plain tensor ops) against pallas (K1) --------
-    # Two exact implementations of one quantized network differ only where
-    # an f32 partial sum lands on the other side of a quantizer step, and
-    # 28 random bf16 layers amplify each such flip.  The bar is therefore
-    # relative to a control: the plain version against itself with its
-    # partial sums accumulated in f64 (another rounding of the same math).
     log("phase 4: full-width prefill, fake_quant against pallas")
-    toks = prompts[0][None].astype(np.int32)
-    (l_p, _), rep_p = rt.prefill(toks, max_len=256)
-    rt_fq = rt.with_overrides(backend="fake_quant")
-    (l_f, _), rep_f = rt_fq.prefill(toks, max_len=256)
-    with f64_partial_sums(torch):
-        (l_c, _), rep_c = rt_fq.prefill(toks, max_len=256)
+    serve.update(fake_quant_check(torch, rt, prompts[0], 256))
+    return serve
+
+
+def fake_quant_check(torch, rt, prompt, max_len: int) -> dict:
+    """One full-width prefill of ``prompt`` on ``pallas`` (``rt``) against
+    ``fake_quant``, the plain tensor version of the same math: finite
+    logits of the vocabulary's width, equal A/D ops, and a relative L2
+    within the bar.  Two exact implementations of one quantized network
+    differ only where an f32 partial sum lands on the other side of a
+    quantizer step, and many random bf16 layers amplify each such flip, so
+    the bar is relative to a control: the plain version against itself
+    with its partial sums accumulated in f64 (another rounding of the same
+    math).  The residual stream after layer 0 and a few later depths is
+    held to the same bar wherever its control reads at most
+    ``DEPTH_CTRL_MAX``."""
+    toks = prompt[None].astype("int32")
+    # the residual stream after a few depths, for each of the three runs
+    # (pallas, fake_quant, control): where the divergence grows
+    n = len(rt.model.layers)
+    seen: dict = {}
+    hooks = [rt.model.layers[d].register_forward_hook(
+        lambda mod, args, out, d=d: seen.setdefault(d, []).append(
+            out[0].float())) for d in sorted({0, n // 4, n // 2, n - 1})]
+    try:
+        (l_p, _), rep_p = rt.prefill(toks, max_len=max_len)
+        rt_fq = rt.with_overrides(backend="fake_quant")
+        (l_f, _), rep_f = rt_fq.prefill(toks, max_len=max_len)
+        with f64_partial_sums(torch):
+            (l_c, _), rep_c = rt_fq.prefill(toks, max_len=max_len)
+    finally:
+        for h in hooks:
+            h.remove()
+    del rt_fq
     torch.cuda.synchronize()
+    depth = {d: (rel_l2(x_p, x_f), rel_l2(x_c, x_f))
+             for d, (x_p, x_f, x_c) in sorted(seen.items())}
+    # held to the logits' bar at every depth whose control stays small
+    # (a recurrence can amplify flips until the control accepts anything)
+    gated = {d: max(LOGIT_CTRL_FACTOR * b, LOGIT_REL_FLOOR)
+             for d, (a, b) in depth.items() if b <= DEPTH_CTRL_MAX}
+    log("  residual stream after layer d, relative L2 to fake_quant "
+        "(pallas; control; bar): " + "; ".join(
+            f"{d}: {a:.3e}; {b:.3e}; "
+            + (f"{gated[d]:.3e}" if d in gated else "none (a reading)")
+            for d, (a, b) in depth.items()))
+    if 0 not in gated or any(depth[d][0] > bar for d, bar in gated.items()):
+        raise AssertionError("pallas and fake_quant disagree in the "
+                             "residual stream")
 
     rel, ctrl = rel_l2(l_p, l_f), rel_l2(l_c, l_f)
     bar = max(LOGIT_CTRL_FACTOR * ctrl, LOGIT_REL_FLOOR)
     same_top = bool((l_p.argmax(-1) == l_f.argmax(-1)).all())
-    log(f"  logits {tuple(l_p.shape)}: pallas vs fake_quant relative L2 "
+    finite = bool(torch.isfinite(l_p).all())
+    log(f"  logits {tuple(l_p.shape)} (finite {finite}): pallas vs "
+        f"fake_quant relative L2 "
         f"{rel:.3e} (bar {bar:.3e}); control (fake_quant with f64 partial "
         f"sums) {ctrl:.3e}; pallas vs control {rel_l2(l_p, l_c):.3e}; "
         f"same argmax {same_top}; ad_ops {rep_p.total():.0f} vs "
         f"{rep_f.total():.0f} vs {rep_c.total():.0f}")
-    if tuple(l_p.shape) != (1, cfg.vocab_size) or not bool(
-            torch.isfinite(l_p).all()):
+    if tuple(l_p.shape) != (1, rt.cfg.vocab_size) or not finite:
         raise AssertionError("pallas logits not finite or misshapen")
     if rel > bar or not rep_p.total() == rep_f.total() == rep_c.total():
         raise AssertionError("pallas and fake_quant disagree at full width")
-    serve.update(logit_rel_l2=rel, control_rel_l2=ctrl, same_argmax=same_top)
-    return serve
+    return dict(logit_rel_l2=rel, control_rel_l2=ctrl, same_argmax=same_top,
+                depth_rel_l2=depth, depth_bar=gated)
 
 
 # ---------------------------------------------------------------------------
@@ -817,22 +940,50 @@ def k3_bound(m: int, k: int, n: int, k_i: int = 8, k_w: int = 8):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def column_blocks(a_mask, w_mask):
+    """Column slices of ``w_mask`` whose (k_i, k_w, G, M, columns) f32
+    bit-line sums stay within ``PLAIN_BYTES``: the plain version and the
+    control run a block at a time (at M = 64 the lm_head's would take
+    34 GB at once).  Columns are independent, so the blocks' results are
+    the whole call's bit for bit."""
+    k_i, m, g, _ = a_mask.shape
+    n = w_mask.shape[2]
+    cols = max(1, PLAIN_BYTES // (4 * k_i * w_mask.shape[0] * g * m))
+    return [w_mask[:, :, c:c + cols] for c in range(0, n, cols)]
+
+
+def plain_k3(torch, a_mask, w_mask, s, **kw):
+    """K3's plain version, a column block at a time."""
+    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
+    parts = [xbar_mvm_ref(a_mask, wb, s, **kw)
+             for wb in column_blocks(a_mask, w_mask)]
+    per = torch.cat([p[2] for p in parts], 1) if kw.get("per_output") \
+        else None
+    return (torch.cat([p[0] for p in parts], 1),
+            torch.stack([p[1] for p in parts]).sum(), per)
+
+
 def f64_control(torch, a_mask, w_mask, p):
     """The accumulator of the same datapath with its shift-add in f64:
     bit-line sums from an f32 0/1 einsum (exact), the plain quantizer,
-    then sum q 2^(b+c) over (b, c, g) in double."""
+    then sum q 2^(b+c) over (b, c, g) in double; a column block at a
+    time."""
     from repro_torch.core.trq import TRQParams, trq_quant
     from repro_torch.kernels.xbar_mvm.ref import unpack_planes
-    psum = torch.einsum("imgx,jgxn->ijgmn", unpack_planes(a_mask),
-                        unpack_planes(w_mask).transpose(2, 3))
-    if p is not None:
-        psum = trq_quant(psum, TRQParams(
-            delta_r1=p.delta_r1, bias=p.bias, n_r1=p.n_r1, n_r2=p.n_r2,
-            m=p.m, nu=p.nu, mode=p.mode, signed=False))
     k_i, k_w = a_mask.shape[0], w_mask.shape[0]
-    bi = 2.0 ** torch.arange(k_i, dtype=torch.float64, device=psum.device)
-    bj = 2.0 ** torch.arange(k_w, dtype=torch.float64, device=psum.device)
-    return torch.einsum("ijgmn,i,j->mn", psum.double(), bi, bj)
+    bi = 2.0 ** torch.arange(k_i, dtype=torch.float64, device=a_mask.device)
+    bj = 2.0 ** torch.arange(k_w, dtype=torch.float64, device=a_mask.device)
+    out = []
+    for wb in column_blocks(a_mask, w_mask):
+        psum = torch.einsum("imgx,jgxn->ijgmn", unpack_planes(a_mask),
+                            unpack_planes(wb).transpose(2, 3))
+        if p is not None:
+            psum = trq_quant(psum, TRQParams(
+                delta_r1=p.delta_r1, bias=p.bias, n_r1=p.n_r1, n_r2=p.n_r2,
+                m=p.m, nu=p.nu, mode=p.mode, signed=False))
+        out.append(torch.einsum("ijgmn,i,j->mn", psum.double(), bi, bj))
+        del psum
+    return torch.cat(out, 1)
 
 
 def k3_operands(torch, gen, m: int, k: int, n: int, dev, bits: int = 8):
@@ -852,11 +1003,14 @@ def k3_operands(torch, gen, m: int, k: int, n: int, dev, bits: int = 8):
 
 def int_mm_planes(torch, a_mask, w_mask):
     """The yardstick's operands: the unpacked int8 0/1 planes as one
-    (k_i M, K) @ (K, k_w N) product for ``torch._int_mm``."""
+    (k_i M, K) @ (K, k_w N) product for ``torch._int_mm``, whose rows are
+    more than 16: fewer (M <= 2) are padded with zero rows to 24."""
     from repro_torch.kernels.xbar_mvm.ref import unpack_planes
     k_i, m = a_mask.shape[:2]
     k_w, _, n = w_mask.shape[:3]
     a8 = unpack_planes(a_mask).reshape(k_i * m, -1).to(torch.int8)
+    if a8.shape[0] <= 16:
+        a8 = torch.nn.functional.pad(a8, (0, 0, 0, 24 - a8.shape[0]))
     w8 = unpack_planes(w_mask).permute(1, 3, 0, 2).reshape(-1, k_w * n)
     return a8, w8.to(torch.int8)
 
@@ -865,7 +1019,6 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     from repro_torch.core.trq import make_params
     from repro_torch.kernels.xbar_mvm import kernel as k3
     from repro_torch.kernels.xbar_mvm import pack_scalars
-    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
@@ -875,6 +1028,7 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     sms = k3.sm_count(dev)
     bodies: dict = {}
     cases = [(m, k, n, 8) for m in K3_MS for k, n in PROJ_KN]
+    cases += [(m, k, n, 8) for m in RWKV_MS for k, n in RWKV_KN]
     cases += [(3, 300, 130, 8), K3_NARROW]
     for (m, k, n, bits) in cases:
         a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev, bits)
@@ -890,7 +1044,7 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                 kw.update(n_r1=p.n_r1, n_r2=p.n_r2, m=p.m, nu=p.nu,
                           mode=p.mode)
             acc, ops, per = k3.xbar_mvm_cuda(a_mask, w_mask, s, **kw)
-            acc_r, ops_r, per_r = xbar_mvm_ref(a_mask, w_mask, s, **kw)
+            acc_r, ops_r, per_r = plain_k3(torch, a_mask, w_mask, s, **kw)
             ctrl = f64_control(torch, a_mask, w_mask, p)
             torch.cuda.synchronize()
             if int(ops) != int(ops_r) or not torch.equal(per, per_r):
@@ -917,15 +1071,16 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                     f"element {float(bar.flatten()[err.argmax()]):.3e})")
             if not ok:
                 raise AssertionError("K3 outside its bar:" + line)
-            if name == "default" and m in K3_TIMED_MS and (k, n) in \
-                    PROJ_KN and bits == 8:
+            if name == "default" and bits == 8 and ((k, n) in PROJ_KN and
+                                                    m in K3_TIMED_MS or
+                                                    (m, k, n) in RWKV_PATH):
                 kw_main = dict(kw, per_output=False)
                 kern = lambda: k3.xbar_mvm_cuda(  # noqa: E731
                     a_mask, w_mask, s, **kw_main)
                 ms = device_ms(torch, kern, 20, flush)
                 per_call = call_ms(torch, kern, 20, flush)
-                plain = device_ms(torch, lambda: xbar_mvm_ref(
-                    a_mask, w_mask, s, **kw_main), 3, flush)
+                plain = device_ms(torch, lambda: plain_k3(
+                    torch, a_mask, w_mask, s, **kw_main), 3, flush)
                 a8, w8 = int_mm_planes(torch, a_mask, w_mask)
                 mm_ms = device_ms(torch, lambda: torch._int_mm(a8, w8), 20,
                                   flush)
@@ -972,7 +1127,6 @@ def bit_exact_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     from repro_torch import runtime
     from repro_torch.kernels.xbar_mvm import kernel as k3
     from repro_torch.models.registry import init
-    import numpy as np
 
     t0 = time.perf_counter()
     rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
@@ -984,7 +1138,7 @@ def bit_exact_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     warm(rt)
     torch.cuda.synchronize()
     run = run_trace(torch, rt, cfg, k3, "K3")
-    rec["launches"] = run["launches"]
+    rec["launches_by_path"][cfg.name] = run["launches"]
     per_token = cfg.n_layers * conversions_per_token(cfg, SLICES)
     want = 7 * per_token * run["rows"]
     if run["total_ad_ops"] != want:
@@ -1012,29 +1166,36 @@ def bit_exact_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     # attention, and the device-idle share
     out["profile"] = profile_forwards(torch, rt, prompts[0])
 
-    # -- the plain version of K3 on one full-width prefill ------------------
-    toks = prompts[0][None].astype(np.int32)
-    (l_k, _), rep_k = rt.prefill(toks, max_len=256)
+    out.update(plain_k3_check(torch, rt, prompts[0], 256))
+    return out
+
+
+def plain_k3_check(torch, rt, prompt, max_len: int) -> dict:
+    """One full-width prefill of ``prompt`` on ``bit_exact`` (``rt``)
+    through K3 and through its plain version: finite logits, relative L2
+    within ``BIT_EXACT_REL_BAR``, the same argmax, equal A/D ops."""
+    toks = prompt[None].astype("int32")
+    (l_k, _), rep_k = rt.prefill(toks, max_len=max_len)
     with plain_kernels():
         t1 = time.perf_counter()
-        (l_p, _), rep_p = rt.prefill(toks, max_len=256)
+        (l_p, _), rep_p = rt.prefill(toks, max_len=max_len)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t1
     rel = rel_l2(l_k, l_p)
     same_top = bool((l_k.argmax(-1) == l_p.argmax(-1)).all())
-    log(f"  64-token prefill, K3 vs its plain version ({plain_s:.1f} s): "
+    log(f"  {len(prompt)}-token prefill, K3 vs its plain version "
+        f"({plain_s:.1f} s): "
         f"logits relative L2 {rel:.3e} (bar {BIT_EXACT_REL_BAR:.0e}), "
         f"bitwise {torch.equal(l_k, l_p)}, same argmax {same_top}, ad_ops "
         f"{rep_k.total():.0f} vs {rep_p.total():.0f}")
-    if tuple(l_k.shape) != (1, cfg.vocab_size) or not bool(
+    if tuple(l_k.shape) != (1, rt.cfg.vocab_size) or not bool(
             torch.isfinite(l_k).all()):
         raise AssertionError("bit_exact logits not finite or misshapen")
     if rel > BIT_EXACT_REL_BAR or not same_top or \
             rep_k.total() != rep_p.total():
         raise AssertionError("K3 and its plain version disagree at full "
                              "width")
-    out.update(plain_logit_rel_l2=rel, plain_same_argmax=same_top)
-    return out
+    return dict(plain_logit_rel_l2=rel, plain_same_argmax=same_top)
 
 
 def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
@@ -1384,6 +1545,215 @@ def noise_phase(torch, cfg_be, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: full-width rwkv6-7b
+# ---------------------------------------------------------------------------
+
+def decode_shares(n_req: int, max_batch: int, new: int) -> list:
+    """For each request of a greedy trace with ``new`` tokens each (the
+    first from its prefill), admitted in order into ``max_batch`` slots:
+    the sum, over the decode steps it rode, of 1 / (requests active in the
+    step) -- the engine splits a step's conversions (all ``max_batch``
+    rows, idle ones included) evenly over its active requests."""
+    left, queue, active = [new - 1] * n_req, list(range(n_req)), []
+    shares = [0.0] * n_req
+    while queue or active:
+        while queue and len(active) < max_batch:
+            active.append(queue.pop(0))
+        for r in active:
+            shares[r] += 1.0 / len(active)
+            left[r] -= 1
+        active = [r for r in active if left[r] > 0]
+    return shares
+
+
+def bucket(n: int, max_len: int) -> int:
+    """The engine's prefill length: the power of two >= n, at least 8."""
+    return min(max(8, 1 << (n - 1).bit_length()), max_len)
+
+
+def rwkv_conversions(cfg):
+    """(conversions of a token row through every projection and the
+    ``lm_head``, of a prefill row that stops before the ``lm_head``): N x
+    ceil(K/128) per projection."""
+    d, f = cfg.d_model, cfg.d_ff
+    layer = 5 * d * -(-d // 128) + 2 * f * -(-d // 128) + d * -(-f // 128)
+    prefill = cfg.n_layers * layer
+    return prefill + cfg.vocab_size * -(-d // 128), prefill
+
+
+def mixed_trace(torch, built, counter, kname: str, slices: int) -> dict:
+    """The serve bench's mixed-archs trace (``benchmarks/serve_bench_torch
+    .py``: prompts of 12, 24 and 7 tokens, 6 new tokens, max_len 64, max
+    batch 2) through its own ``serve``, with ``counter.LAUNCHES`` set to 0
+    just before and read just after.  Fails unless every forward launched
+    the kernel 257 times, every request's A/D ops equal the closed form
+    (``slices`` bit-line conversions per crossbar group and output, 7 ops
+    each) and every request got 6 in-vocab tokens."""
+    from benchmarks import serve_bench_torch as sb
+    cfg, rt = built
+    prompts = sb.mixed_prompts(cfg.vocab_size)
+    counter.LAUNCHES = 0
+    calls0 = rt.forward_calls
+    rec, eng = sb.serve(built, prompts, max_new=MIXED_NEW,
+                        max_batch=MIXED_BATCH, max_len=64)
+    launches = counter.LAUNCHES
+    calls = rt.forward_calls - calls0
+    done = sorted(eng.finished, key=lambda r: r.uid)
+    per_conv = 7 * slices
+    row, prefill_row = rwkv_conversions(cfg)
+    ok = len(done) == len(prompts)
+    per_req = []
+    for r, share in zip(done, decode_shares(len(prompts), MIXED_BATCH,
+                                            MIXED_NEW)):
+        p = bucket(len(r.prompt), 64)
+        pre = per_conv * (prefill_row * p + row - prefill_row)
+        want = pre + per_conv * row * MIXED_BATCH * share
+        ok = ok and r.prefill_ad_ops == pre and r.ad_ops == want and \
+            len(r.generated) == MIXED_NEW and all(
+                0 <= t < cfg.vocab_size for t in r.generated)
+        per_req.append(r.ad_ops)
+        log(f"  req {r.uid}: {len(r.prompt)}-token prompt (bucket {p}), "
+            f"ttft {1e3 * (r.first_token_t - r.submit_t):.1f} ms, ad_ops "
+            f"{r.ad_ops:.0f} (closed form {want:.0f}; prefill "
+            f"{r.prefill_ad_ops:.0f}, closed form {pre}), tokens "
+            f"{list(r.generated)}")
+    per_fwd = cfg.n_layers * RWKV_PROJ_PER_LAYER + 1
+    log(f"  served {rec['requests']} requests, {rec['decode_tokens']} "
+        f"tokens in {rec['wall_s']:.2f} s: {rec['tokens_per_s']:.2f} tok/s, "
+        f"mean ttft {1e3 * rec['mean_ttft_s']:.1f} ms, total ad_ops "
+        f"{rec['total_ad_ops']:.0f}, {calls} forwards, {kname} launches "
+        f"{launches} (expected {per_fwd} x {calls})")
+    if launches != per_fwd * calls or calls == 0:
+        raise AssertionError(f"{kname} launched {launches} times for "
+                             f"{calls} forwards; expected {per_fwd} each")
+    if not ok:
+        raise AssertionError("rwkv6: A/D ops per request off the closed "
+                             "form, or tokens missing")
+    return dict(tokens_per_s=rec["tokens_per_s"],
+                mean_ttft_ms=1e3 * rec["mean_ttft_s"],
+                total_ad_ops=rec["total_ad_ops"], ad_ops_per_request=per_req,
+                forwards=calls, launches=launches, wall_s=rec["wall_s"],
+                tokens=[list(r.generated) for r in done])
+
+
+def recurrence_check(torch, rt, device: str = "cuda") -> dict:
+    """The chunked WKV scan of a prefill is the per-token recurrence: at
+    the model's head shapes (2 sequences of 45 tokens, a padded last chunk,
+    seeded r, k, v, log-decays across ``decay_w``'s range, from a zero and
+    a nonzero state) and through layer 0's time-mix on the ``exact``
+    datapath in f32 (one 45-token prefill against 45 single-token decode
+    steps from the zero cache).  Relative L2 of the outputs and the carried
+    ``s`` within ``WKV_TOL``; ``x_prev`` bitwise."""
+    from repro_torch.models import rwkv6
+    from repro_torch.models.layers import PimContext
+    cfg = rt.cfg
+    h, hs = rwkv6.dims(cfg)
+    t_len = 45
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    r, k, v = (randn(2, h, t_len, hs) for _ in range(3))
+    base = torch.linspace(-6.0, -1.0, h * hs, device=device).reshape(h, hs)
+    logw = -torch.exp(base[None, :, None] + 0.5 * randn(2, h, t_len, hs))
+    u = randn(h, hs)
+    errs = {}
+    for label, s0 in (("zero", torch.zeros(2, h, hs, hs, device=device)),
+                      ("warm", randn(2, h, hs, hs))):
+        out, s_end = rwkv6.wkv(r, k, v, logw, u, s0, cfg.rwkv_chunk)
+        st, steps = s0, []
+        for t in range(t_len):
+            o, st = rwkv6.wkv_step(r[:, :, t], k[:, :, t], v[:, :, t],
+                                   logw[:, :, t], u, st)
+            steps.append(o)
+        errs[f"wkv_{label}_out"] = rel_l2(out, torch.cat(steps, 2))
+        errs[f"wkv_{label}_s"] = rel_l2(s_end, st)
+
+    mix = rt.model.layers[0].rwkv
+    ctx = PimContext(cfg.replace(dtype="float32"), "exact", device=device)
+    x = randn(1, t_len, cfg.d_model)
+    zero = {"s": torch.zeros(1, h, hs, hs, device=device),
+            "x_prev": torch.zeros(1, 1, cfg.d_model, device=device)}
+    with torch.no_grad():
+        y, c_pre = mix(x, ctx, cache=zero)
+        c, ys = zero, []
+        for t in range(t_len):
+            y1, c = mix(x[:, t:t + 1], ctx, cache=c)
+            ys.append(y1)
+    errs["mix_out"] = rel_l2(y, torch.cat(ys, 1))
+    errs["mix_s"] = rel_l2(c_pre["s"], c["s"])
+    same_x = torch.equal(c_pre["x_prev"], c["x_prev"])
+    log(f"  chunked scan against the recurrence ({t_len} tokens, "
+        f"{h} heads of {hs}, chunk {cfg.rwkv_chunk}): relative L2 "
+        + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items())
+        + f" (bar {WKV_TOL:.0e}); x_prev bitwise {same_x}")
+    if max(errs.values()) > WKV_TOL or not same_x:
+        raise AssertionError("the chunked WKV scan and the recurrence "
+                             "disagree")
+    return errs
+
+
+def rwkv_config():
+    from repro_torch.models.registry import get_config
+    cfg = get_config(RWKV_ARCH).replace(param_dtype="bfloat16",
+                                        pim_backend="pallas", remat="none")
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size,
+            cfg.tie_embeddings) == (RWKV_LAYERS, 4096, 14336, 65536, False)
+    assert rwkv_conversions(cfg) == (RWKV_ROW, RWKV_PREFILL_ROW)
+    return cfg
+
+
+def rwkv6_phase(torch, rec1: dict, rec3: dict, cfg,
+                device: str = "cuda") -> dict:
+    """rwkv6-7b at ``cfg`` on ``pallas`` through K1, then on ``bit_exact``
+    through K3 (see the module docstring, phase 11)."""
+    from benchmarks import serve_bench_torch as sb
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+
+    torch.cuda.reset_peak_memory_stats()
+    rt, gib = compile_pallas(torch, cfg, device)
+    n_params = sum(t.numel() for t in rt.model.state_dict().values())
+    log(f"  {n_params / 1e9:.3f} B parameters")
+    out = dict(params=n_params, gib_after_compile=gib)
+    prompt = sb.mixed_prompts(cfg.vocab_size)[1]          # 24 tokens
+    runs = {}
+    for backend, counter, kname, slices in (("pallas", k1, "K1", 1),
+                                            ("bit_exact", k3, "K3",
+                                             SLICES)):
+        if backend == "bit_exact":
+            t0 = time.perf_counter()
+            rt = rt.with_overrides(backend="bit_exact")
+            torch.cuda.synchronize()
+            g = 2 ** 30
+            log(f"  programmed {len(rt.plan)} bit_exact layer plans in "
+                f"{time.perf_counter() - t0:.1f} s; "
+                f"{torch.cuda.memory_allocated() / g:.2f} GiB allocated, "
+                f"peak {torch.cuda.max_memory_allocated() / g:.2f} GiB")
+            warm(rt)
+        run = runs[backend] = mixed_trace(torch, (cfg, rt), counter, kname,
+                                          slices)
+        run.update(forward_times(torch, rt, prompt, MIXED_BATCH, 64))
+        log(f"  {backend}: one decode step (batch {MIXED_BATCH}) "
+            f"{run['decode_step_ms']:.1f} ms, one {len(prompt)}-token "
+            f"prefill {run[f'prefill{len(prompt)}_ms']:.1f} ms")
+        run["profile"] = profile_forwards(torch, rt, prompt, MIXED_BATCH, 64)
+        if backend == "pallas":
+            out["recurrence"] = recurrence_check(torch, rt, device)
+            log("  a full-width prefill, fake_quant against pallas (the "
+                "phase-4 bar)")
+            out.update(fake_quant_check(torch, rt, prompt, 64))
+        else:
+            run.update(plain_k3_check(torch, rt, prompt, 64))
+    for rec, backend in ((rec1, "pallas"), (rec3, "bit_exact")):
+        rec["launches_by_path"][RWKV_ARCH] = runs[backend]["launches"]
+    out.update(runs)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
 def pallas_config():
     from repro_torch.models.registry import get_config
     cfg = get_config(ARCH).replace(param_dtype="bfloat16",
@@ -1393,6 +1763,7 @@ def pallas_config():
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -1435,7 +1806,8 @@ def main(argv) -> int:
     rec = dict(name="trq_group_mvm", route="cuda",
                source="src/repro_torch/kernels/csrc/trq_group_mvm.cu",
                replaces="src/repro/kernels/trq_group_mvm/kernel.py:57",
-               launches=0, max_abs_err=0.0, flips=0, elements=0, shapes=[])
+               launches=0, launches_by_path={}, max_abs_err=0.0, flips=0,
+               elements=0, shapes=[])
     rec2 = dict(name="trq_quant", route="cuda",
                 source="src/repro_torch/kernels/csrc/trq_quant.cu",
                 replaces="src/repro/kernels/trq_quant/kernel.py:40",
@@ -1443,7 +1815,8 @@ def main(argv) -> int:
     rec3 = dict(name="xbar_mvm", route="cuda",
                 source="src/repro_torch/kernels/csrc/xbar_mvm.cu",
                 replaces="src/repro/kernels/xbar_mvm/kernel.py:72",
-                launches=0, max_abs_err=0.0, shapes=[])
+                launches=0, launches_by_path={}, max_abs_err=0.0,
+                shapes=[])
     log("phase 2: trq_group_mvm against its plain version")
     k1_phase(torch, rec)
     log("phase 3: serve full-width llama3.2-3b on pallas")
@@ -1468,6 +1841,16 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     log("phase 10: the noise seam")
     noise = noise_phase(torch, cfg_be)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11: serve full-width {RWKV_ARCH} on pallas and bit_exact "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated)")
+    t11 = time.perf_counter()
+    rwkv = rwkv6_phase(torch, rec, rec3, rwkv_config())
+    rwkv["phase_s"] = time.perf_counter() - t11
+    for r in (rec, rec3):
+        r["launches"] = sum(r["launches_by_path"].values())
 
     for r, shape in ((rec, HEADLINE_SHAPE), (rec2, [CALIB_SAMPLES]),
                      (rec3, HEADLINE_SHAPE)):
@@ -1481,6 +1864,9 @@ def main(argv) -> int:
     log(json.dumps({"calibration": calib}))
     log(json.dumps({"serve_bench": bench}))
     log(json.dumps({"noise": noise}))
+    log(json.dumps({"rwkv6": rwkv}))
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": [rec, rec2, rec3]}))
     log(json.dumps({"ok": True, "device": {

@@ -35,11 +35,20 @@ def pack_planes(x_uint: torch.Tensor, bits: int) -> torch.Tensor:
     return (words - ((words >> 31) << 32)).to(torch.int32)
 
 
+# columns packed at a time when programming weights: pack_planes' int64
+# temporaries take 64 bytes per weight and bit (34 GB for a whole 4,096 x
+# 65,536 lm_head at 8 bits, 2 GB per block of 8,192 columns)
+PACK_COLS = 8192
+
+
 def pack_weight_planes(u_uint: torch.Tensor, bits: int) -> torch.Tensor:
     """(K, N) offset-encoded weights -> (bits, G, N, 4) int32 bit masks,
     the layout the kernel reads with one 16-byte load per column (1 byte
-    per weight at bits = 8)."""
-    return pack_planes(u_uint.t(), bits).permute(0, 2, 1, 3).contiguous()
+    per weight at bits = 8); packed ``PACK_COLS`` columns at a time."""
+    cols = u_uint.t()
+    return torch.cat([pack_planes(cols[c:c + PACK_COLS], bits)
+                      for c in range(0, cols.shape[0], PACK_COLS)],
+                     dim=1).permute(0, 2, 1, 3).contiguous()
 
 
 def pack_scalars(p: Optional[TRQParams], device) -> torch.Tensor:

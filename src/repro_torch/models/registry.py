@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` -> config, model and seeded init
-(the ``llama3.2-3b`` slice of ``repro.models.registry``).
+(the ``llama3.2-3b`` and ``rwkv6-7b`` slice of ``repro.models.registry``).
 
 The reference's init draws from ``jax.random``, which PyTorch cannot
 replay; :func:`init` draws from a ``torch.Generator`` with the same
 distributions and scales (``init_linear``: N(0, 1) * d_in**-0.5;
-``init_embed``: N(0, 1) * d_model**-0.5; RMSNorm scales 1, in f32), on the
+``init_embed``: N(0, 1) * d_model**-0.5; RMSNorm scales 1, in f32; the
+rwkv time-mix's leaves as ``repro.models.rwkv6.init_rwkv``), on the
 target device so a full-width model never passes through host memory.
 Parity tests instead load the reference's own weights (``repro_torch.convert``).
 """
@@ -17,8 +18,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .layers import Embed, PimLinear, RMSNorm, pdtype
+from .rwkv6 import HeadNormAffine, RWKV6TimeMix
 
-ARCHS = ("llama3.2-3b",)
+ARCHS = ("llama3.2-3b", "rwkv6-7b")
 
 
 def _module_name(arch: str) -> str:
@@ -48,6 +50,7 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     gen.manual_seed(seed)
     dt = pdtype(cfg)
     state = {}
+    f32 = dict(dtype=torch.float32, device=device)
     for path, mod in build_model(cfg).named_modules():
         pre = f"{path}." if path else ""
         if isinstance(mod, PimLinear):
@@ -63,4 +66,17 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         elif isinstance(mod, Embed):
             tok = torch.randn(*mod.tok.shape, generator=gen, device=device)
             state[pre + "tok"] = (tok * cfg.d_model ** -0.5).to(dt)
+        elif isinstance(mod, RWKV6TimeMix):
+            d, lora = mod.decay_lora_a.shape
+            da = mod.decay_w.shape[0]
+            state[pre + "mu"] = torch.full((5, d), 0.5, **f32)
+            state[pre + "decay_w"] = torch.linspace(-6.0, -1.0, da, **f32)
+            a = torch.randn(d, lora, generator=gen, device=device)
+            state[pre + "decay_lora_a"] = (a * d ** -0.5).to(dt)
+            state[pre + "decay_lora_b"] = torch.zeros(lora, da, dtype=dt,
+                                                      device=device)
+            state[pre + "bonus_u"] = torch.zeros(da, **f32)
+        elif isinstance(mod, HeadNormAffine):
+            state[pre + "scale"] = torch.ones(mod.scale.shape[0], **f32)
+            state[pre + "bias"] = torch.zeros(mod.bias.shape[0], **f32)
     return state

@@ -16,9 +16,14 @@ block pool and per-request attribution of each call's ``AdOpsReport``.
   block per slot is scattered back — pure data movement, so the paged
   engine is bitwise-identical to the dense slot engine (``paged=False``),
   kept as the in-port reference.
-* Idle slot rows are zeroed after every step: they ride through batched
-  decode, and their content would leak into active rows through the
-  dynamic max-abs scales of the fake_quant / pallas datapaths.
+* Idle slot rows are zeroed after every step, recurrent state (rwkv
+  ``s``/``x_prev``) included: they ride through batched decode, and their
+  content would leak into active rows through the dynamic max-abs scales
+  of the fake_quant / pallas datapaths.
+* A model with no paged leaf (rwkv6: its cache is O(1) recurrent state)
+  allocates no page and writes no block; prefix reuse is off for it.
+* A prompt is left-padded into its bucket, and a recurrent prefill steps
+  its state over the padding tokens too, as the reference's does.
 * Per-request metering: prefill ops go to their request exactly, a decode
   step's ops are split evenly over the slots that stepped.
 * Sampling is greedy (``argmax``) at temperature 0, else categorical from
@@ -179,7 +184,8 @@ class ServeEngine:
             r.block_table = []
 
     def _zero_slot(self, slot: int) -> None:
-        """Zero an idle slot's cache row (see module docstring)."""
+        """Zero an idle slot's cache row, recurrent state included (see
+        module docstring)."""
         if self.paged:
             self.state_cache = scatter_cache(self.state_cache,
                                              self.kv.make_state(1), slot)
@@ -221,7 +227,7 @@ class ServeEngine:
                 toks, max_len=self.max_len)
         self._meter(r, rep.ad_ops, prefill=True)
 
-        if self.paged:
+        if self.paged and self.kv.specs:
             n_blk = min(-(-padded // bs), self.kv.pages_per_slot)
             new_blks = np.arange(reuse_n, n_blk, dtype=np.int32)
             if len(new_blks):
@@ -271,7 +277,7 @@ class ServeEngine:
         tables = np.full((self.max_batch, self.kv.pages_per_slot),
                          ZERO_PAGE, np.int32)
         for i, r in enumerate(self.slots):
-            if r is None:
+            if r is None or not self.kv.specs:
                 continue
             blk = self._write_blk(r)
             while len(r.block_table) <= blk:
@@ -285,6 +291,8 @@ class ServeEngine:
             self.cache = new_cache
             return
         self.state_cache = self.kv.state_only(new_cache)
+        if not self.kv.specs:
+            return
         blks = [self._write_blk(self.slots[i]) for i in active]
         pages = [self.slots[i].block_table[b] for i, b in zip(active, blks)]
         self.kv.write_blocks(new_cache, active, blks, pages)

@@ -1,10 +1,13 @@
 """Paged KV block pool (port of ``repro.serve.kvcache.PagedKVCache``).
 
-The dense LM cache ``{"k", "v": (L, B, S, KV, hd), "len": (B,)}`` is backed
-by two pools shaped ``(num_blocks, L, block_size, KV, hd)``: a page holds
-``block_size`` tokens of one request across all layers, and requests own
-per-slot block tables of page ids.  The ``len`` counters are O(1) per
-request and stay slot-resident (the "state" part of the cache).
+The cache leaves that scale with ``max_len`` (attention ``k``/``v``, shaped
+``(La, B, S, KV, hd)``) are backed by pools shaped ``(num_blocks, La,
+block_size, KV, hd)``: a page holds ``block_size`` tokens of one request
+across all attention layers, and requests own per-slot block tables of page
+ids.  The rest of the cache is O(1) per request and stays slot-resident
+(the "state" part): the ``len`` counters, and the rwkv ``s``/``x_prev``
+recurrent state.  A model with no attention layer (rwkv6) has no paged
+leaf (``specs`` is empty): no pools, no pages, no block writes.
 
 Page 0 is permanently zero: block tables are padded with it, so the gather
 materializes exact zeros for unallocated tail pages — what makes paged
@@ -23,8 +26,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.lm import PAGED_KEYS, init_state, mixers
+
 ZERO_PAGE = 0               # permanently zero; backs unallocated table slots
-PAGED_KEYS = ("k", "v")     # cache leaves that scale with max_len
 
 
 @dataclasses.dataclass
@@ -48,14 +52,19 @@ class PagedKVCache:
         self.max_batch = max_batch
         self.max_len = max_len
         self.pages_per_slot = max_len // block_size
+        self.cfg = cfg
+        self.dtype = dtype
         self.device = device
         if num_blocks is None:
             # residency for every slot + prefix-cache headroom + zero page
             num_blocks = 1 + (max_batch + 2) * self.pages_per_slot
         self.num_blocks = num_blocks
-        block = (cfg.n_layers, block_size, cfg.n_kv_heads, cfg.hd)
+        n_attn = mixers(cfg).count("attn")
+        # the paged leaves the model has
+        self.specs = PAGED_KEYS if n_attn else ()
+        block = (n_attn, block_size, cfg.n_kv_heads, cfg.hd)
         self.pools = {k: torch.zeros((num_blocks,) + block, dtype=dtype,
-                                     device=device) for k in PAGED_KEYS}
+                                     device=device) for k in self.specs}
         self.refcount = np.zeros((num_blocks,), np.int64)
         self.refcount[ZERO_PAGE] = 1            # never allocatable
         self.free: list = list(range(1, num_blocks))
@@ -68,20 +77,24 @@ class PagedKVCache:
     # -- pool <-> dense ------------------------------------------------------
 
     def make_state(self, batch: int, fill_len: Optional[int] = None) -> dict:
-        """Slot-resident state (the ``len`` counters); ``fill_len`` seeds
-        them for a continued prefill over a reused prefix."""
-        return {"len": torch.full((batch,), fill_len or 0, dtype=torch.int32,
-                                  device=self.device)}
+        """Zeroed slot-resident state (every leaf but the paged ones);
+        ``fill_len`` seeds the ``len`` counters for a continued prefill
+        over a reused prefix."""
+        state = init_state(self.cfg, batch, self.dtype, self.device)
+        if fill_len:
+            state["len"].fill_(fill_len)
+        return state
 
     @staticmethod
     def state_only(cache: dict) -> dict:
-        return {"len": cache["len"]}
+        """The slot-resident part of a cache."""
+        return {k: v for k, v in cache.items() if k not in PAGED_KEYS}
 
     def assemble(self, state: dict, tables: np.ndarray) -> dict:
         """The dense cache for a decode / continued-prefill step, gathered
         through ``tables`` (B, n_pages), padded with ZERO_PAGE."""
         t = torch.as_tensor(tables, dtype=torch.long, device=self.device)
-        out = {"len": state["len"]}
+        out = dict(state)
         for key, pool in self.pools.items():
             g = pool[t]                          # (B, np, L, bs, KV, hd)
             b, n_pages, n_l, bs = g.shape[:4]

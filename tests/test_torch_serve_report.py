@@ -240,24 +240,33 @@ def test_runtime_save_files_cross_load(jax_params, tmp_path, writer):
 # the serve bench against the committed baseline
 # ---------------------------------------------------------------------------
 
-def test_serve_bench_quick_counts_equal_the_committed_baseline():
+@pytest.fixture(scope="module")
+def quick_bench():
     """``serve_bench_torch --quick`` on the CPU with the reference's weights
-    (bf16 ``fake_quant``, the configuration ``BENCH_serve.json`` was
-    recorded in) gives the baseline's conversion counts through
-    ``check_regression``; timings are not compared."""
+    of each arch (bf16 ``fake_quant``, the configuration
+    ``BENCH_serve.json`` was recorded in): the fresh report and the
+    baseline's scenarios."""
     import importlib
     sb = importlib.import_module("benchmarks.serve_bench_torch")
-    cr = importlib.import_module("benchmarks.check_regression")
 
     def reference_weights(cfg):
-        jcfg = jget_config(ARCH, smoke=True).replace(
+        jcfg = jget_config(cfg.name, smoke=True).replace(
             remat="none", pim_backend="fake_quant")
         params = jbuild(jcfg)[0](jax.random.PRNGKey(0))
         return from_jax(jax.tree.map(np.asarray, params), cfg)
 
     fresh = sb.run(quick=True, device="cpu", weights=reference_weights)
-    assert (fresh["backend"], fresh["width"]) == ("fake_quant", "smoke")
     base = json.loads((ROOT / "BENCH_serve.json").read_text())["scenarios"]
+    return fresh, base
+
+
+def test_serve_bench_quick_counts_equal_the_committed_baseline(quick_bench):
+    """The quick bench gives the baseline's conversion counts through
+    ``check_regression``; timings are not compared."""
+    import importlib
+    cr = importlib.import_module("benchmarks.check_regression")
+    fresh, base = quick_bench
+    assert (fresh["backend"], fresh["width"]) == ("fake_quant", "smoke")
 
     def counts(rec):
         return {k: v for k, v in rec.items()
@@ -274,7 +283,32 @@ def test_serve_bench_quick_counts_equal_the_committed_baseline():
     sc = fresh["scenarios"]
     assert sc["shared_prefix_chat"]["total_ad_ops"] == 1_444_352
     assert sc["mixed_archs"]["archs"][ARCH]["total_ad_ops"] == 745_472
-    assert sorted(sc["mixed_archs"]["pending_archs"]) == ["rwkv6-7b"]
+    # the quick scenario serves both of the reference's quick archs
+    assert "pending_archs" not in sc["mixed_archs"]
+
+
+def test_serve_bench_quick_rwkv6_counts_equal_the_committed_baseline(
+        quick_bench):
+    """mixed_archs' rwkv6-7b part: the baseline's counts exactly, and every
+    gated number through ``check_regression``; the scenario's aggregates
+    are over both archs, as the reference's."""
+    import importlib
+    cr = importlib.import_module("benchmarks.check_regression")
+    fresh, base = quick_bench
+    rwkv = "rwkv6-7b"
+    got = fresh["scenarios"]["mixed_archs"]
+    assert got["archs"][rwkv]["total_ad_ops"] == 1_300_992
+    assert got["archs"][rwkv]["prefill_ad_ops"] == 1_114_624
+    want = base["mixed_archs"]
+    subset = {"scenarios": {"mixed_archs": {
+        "archs": {rwkv: {k: v for k, v in want["archs"][rwkv].items()
+                         if cr.classify(k)[1] != "timing"}},
+        "mean_ad_ops_per_request": want["mean_ad_ops_per_request"]}}}
+    gated = [p for p in cr.flatten(subset) if cr.classify(p)[0]]
+    assert len(gated) == 6
+    assert cr.compare(fresh, subset, 0.25, 2.0) == []
+    assert got["mean_ad_ops_per_request"] == \
+        want["mean_ad_ops_per_request"]
 
 
 def test_bench_trace_tokens_match_reference_with_and_without_reuse(

@@ -124,6 +124,18 @@ def test_packing_round_trips_to_bitplanes(rng, k):
     assert torch.equal(wm.permute(0, 2, 1, 3), pack_planes(u.t(), 8))
 
 
+def test_weight_packing_by_column_blocks(monkeypatch):
+    """Programming packs a block of columns at a time: the masks equal the
+    whole matrix packed at once, also with a ragged last block."""
+    from repro_torch.kernels.xbar_mvm import ops
+    rng = np.random.default_rng(0)
+    u = torch.from_numpy(rng.integers(0, 256, (300, 10)).astype(np.int32))
+    whole = pack_weight_planes(u, 8)
+    monkeypatch.setattr(ops, "PACK_COLS", 4)
+    assert torch.equal(pack_weight_planes(u, 8), whole)
+    assert torch.equal(whole.permute(0, 2, 1, 3), pack_planes(u.t(), 8))
+
+
 def test_masks_in_ops_total_out(rng):
     """``xbar_mvm_2d`` is the kernel contract: masks in, the accumulator
     before the zero-point correction and the int64 op total out."""
