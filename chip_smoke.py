@@ -55,7 +55,19 @@ which fails the run on any error:
            uniform modes, f32 and f16 input: q bitwise equal (atol=0) and
            ops equal; timed at the calibration shape (65,536 samples) and
            at 2^26 elements, beside the bound by bytes (4 B read, 8 B
-           written per element);
+           written per element).  Then its scoring entry ``trq_score``
+           against ``trq_score_ref`` on three tables at 65,536 samples: the
+           PARAM_GRID registers (signed, unsigned, uniform; steps 1.0 and
+           0.7) on random floats, and the tables ``calibrate_layer`` builds
+           for integer samples of a ``normal`` (154 candidates) and an
+           ``other`` layer (450): op sums equal, squared-error sums equal
+           once rounded to f32 (what the search reads) and, on every
+           integral step over integer samples, bitwise in f64; timed on the
+           normal table beside its bound (C x n evaluations at the fewest
+           instructions one takes, read from the SASS of this build, over
+           the card's instruction rate), its plain version, and the
+           elementwise route written out in the phase (one elementwise
+           launch per candidate and the torch ops around it, f32 sums);
 6. K3      ``xbar_mvm`` against its plain version at the four projection
            shapes for M = 1, 4, 16, 17 and 64 (decode, continued prefill,
            prefill and the ragged tiles), rwkv6-7b's four projection shapes
@@ -87,11 +99,16 @@ which fails the run on any error:
            on a ``bit_exact`` Runtime with per-depth names
            (``scan_layers=False``); forward hooks take each of the 196
            projections' inputs, ``collect_bl_samples`` turns them into the
-           layer's bit-line sums, ``calibrate_layer(n_max=7)`` scores every
-           candidate through K2; on the 14 projections of the first and
-           last layer, scoring with K2's plain version must pick identical
-           registers; the calibrated QuantState then serves the trace and
-           its A/D ops are read against the uniform 8-bit baseline;
+           layer's bit-line sums, which are subsampled once and kept;
+           ``calibrate_layer(n_max=7)`` scores all of a layer's candidates
+           in one launch of K2's scoring entry (196 launches, no
+           elementwise one), timed with the collection's share; scoring
+           with the plain version must pick identical registers on all
+           196 layers; the elementwise route (f32 sums, one elementwise launch
+           a candidate) on the same samples may pick otherwise only on an
+           exact tie (both candidates' exact sums printed); the calibrated
+           QuantState then serves the trace and its A/D ops are read
+           against the uniform 8-bit baseline;
 9. bench   ``benchmarks/serve_bench_torch.py``'s shared-prefix chat (4
            requests sharing a 40-token prefix, 4 new tokens each, max
            batch 2) on full-width llama3.2-3b on ``pallas`` and on
@@ -138,8 +155,8 @@ which fails the run on any error:
 
 Kernel launch counts are reset just before each main path (phase 3 and
 phase 11 for K1, phase 7 and phase 11 for K3, the calibration of phase 8
-for K2) and read just after; launches that compare a kernel with its
-plain version do not count.
+for both of K2's entries) and read just after; launches that compare a
+kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -210,6 +227,10 @@ DEPTH_CTRL_MAX = 0.1               # phases 4, 11: depths held to the bar
 B1_OPS_PER_S = 9064.3e12
 CALIB_SAMPLES = 65536              # core.calibrate.MAX_CALIB_SAMPLES
 K2_BIG = 2 ** 26
+SCORE_TABLES = ("param_grid", "normal", "other")   # phase 5's scoring
+# thread-instructions a second: 132 SMs x 4 x 32 lanes at 1.98 GHz, the
+# clock of the data sheet's f32 rate (an FFMA is two of its operations)
+INSTRUCTIONS_PER_S = F32_FLOP_PER_S / 2
 # K3 registers: (name, make_params kwargs or None for lossless, the grid
 # unit every quantized bit-line sum is a multiple of)
 K3_REGS = [("default", dict(delta_r1=1.0, n_r1=6, n_r2=6, m=4), 1.0),
@@ -224,7 +245,7 @@ PLAIN_BYTES = 2 ** 31              # phase 6: the plain version in column
 K3_TIMED_MS = (4, 16, 64)          # decode, prefill_cont, prefill
 K3_NARROW = (16, 3072, 1024, 4)    # M, K, N, k_i = k_w: the general body
 BIT_EXACT_REL_BAR = 1e-2           # phase 7: plain vs K3 logits
-CHECKED_DEPTHS = (0, N_LAYERS - 1)  # phase 8: plain-scored layers
+CHECKED_DEPTHS = (0, N_LAYERS - 1)  # phase 8: registers printed
 
 
 def log(*a):
@@ -924,6 +945,193 @@ def k2_phase(torch, rec: dict, device: str = "cuda") -> None:
             f"{b:.4f} ms by bytes)")
 
 
+def score_samples(torch, kind: str, n: int, dev):
+    """Samples and candidate registers of a phase-5 scoring table:
+    ``param_grid``, the PARAM_GRID registers in signed, unsigned and
+    uniform modes at steps 1.0 and 0.7 on random floats; ``normal`` and
+    ``other``, the table ``calibrate_layer`` builds for integer bit-line-
+    like samples of such a layer (integers about 32, as a random layer's
+    bit-line sums; a flat spread over [0, 128])."""
+    import numpy as np
+    from repro_torch.core.calibrate import layer_candidates
+    from repro_torch.core.distribution import classify
+    from repro_torch.core.trq import make_params
+    rng = np.random.default_rng(12)
+    if kind == "param_grid":
+        y = rng.normal(0, 30, n)
+        cands = [make_params(delta_r1=d, **pk, **mode) for pk in PARAM_GRID
+                 for mode in (dict(signed=True), dict(signed=False),
+                              dict(signed=True, mode="uniform"))
+                 for d in (1.0, 0.7)]
+    else:
+        y = rng.normal(32, 3, n).round() if kind == "normal" else \
+            rng.integers(0, 129, n)
+        dist = classify(y)
+        if dist.kind != kind:
+            raise AssertionError(f"{kind} samples classify as {dist.kind}")
+        _, uniform, twin = layer_candidates(dist, n_max=7)
+        cands = uniform + twin
+    return torch.from_numpy(y.astype(np.float32)).to(dev), cands
+
+
+def elementwise_scores(torch, y, cands):
+    """A layer's scores by the elementwise route, written out as the
+    yardstick (what ``core/calibrate.py::_scores`` did before the scoring
+    entry):
+    one elementwise K2 launch per candidate, then sub, square, an f32 sum,
+    the int sum, the casts and a stack; one read of the (C, 2) means."""
+    from repro_torch.kernels.trq_quant import trq_quant
+    regs = torch.tensor([[float(p.delta_r1), float(p.bias)] for p in cands],
+                        dtype=torch.float32).to(y.device)
+    inv_n = 1.0 / y.numel()
+    rows = []
+    for i, p in enumerate(cands):
+        q, ops = trq_quant(y, p.replace(delta_r1=regs[i, 0],
+                                        bias=regs[i, 1]))
+        rows.append(torch.stack([torch.sum(torch.square(q - y)) * inv_n,
+                                 ops.sum().float() * inv_n]))
+    return [(float(a), float(b)) for a, b in torch.stack(rows).cpu().numpy()]
+
+
+def k2_score_phase(torch, rec: dict, device: str = "cuda") -> dict:
+    """The scoring entry against its plain version on the three tables,
+    then timed on the ``normal`` table (the calibration shape)."""
+    from repro_torch.kernels.trq_quant import score_table
+    from repro_torch.kernels.trq_quant.kernel import trq_score_cuda
+    from repro_torch.kernels.trq_quant.ref import trq_score_ref
+
+    dev = torch.device(device)
+    for kind in SCORE_TABLES:
+        y, cands = score_samples(torch, kind, CALIB_SAMPLES, dev)
+        fregs, iregs = score_table(cands, dev)
+        sq, ops = trq_score_cuda(y, fregs, iregs)
+        sq_r, ops_r = trq_score_ref(y, fregs, iregs)
+        torch.cuda.synchronize()
+        f32_same = torch.eq(sq.float(), sq_r.float())
+        f64_same = torch.eq(sq, sq_r)
+        # integer samples on an integral step: every squared error is an
+        # integer below 2^15, so the f64 sums are exact in any order
+        exact = [i for i, p in enumerate(cands) if kind != "param_grid"
+                 and float(p.delta_r1).is_integer()]
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(
+            (sq.float() - sq_r.float()).abs().max()))
+        log(f"  trq_score, {kind} table ({len(cands)} candidates, "
+            f"{CALIB_SAMPLES} samples): ops sums equal "
+            f"{torch.equal(ops, ops_r)}, squared-error sums equal in f32 "
+            f"{int(f32_same.sum())}/{len(cands)}, in f64 "
+            f"{int(f64_same.sum())}/{len(cands)} (integral steps "
+            f"{int(f64_same[exact].sum())}/{len(exact)})")
+        if not (torch.equal(ops, ops_r) and bool(f32_same.all())):
+            for i in torch.nonzero(~f32_same | (ops != ops_r)).flatten():
+                log(f"    candidate {int(i)} {cands[int(i)]}: kernel "
+                    f"{float(sq[i])!r} / {int(ops[i])}, plain "
+                    f"{float(sq_r[i])!r} / {int(ops_r[i])}")
+            raise AssertionError(f"trq_score differs from its plain version "
+                                 f"on the {kind} table")
+        if not bool(f64_same[exact].all()):
+            raise AssertionError("trq_score's f64 sums are not exact on "
+                                 "integral steps")
+
+    # timed at the calibration shape: a normal layer's table
+    y, cands = score_samples(torch, "normal", CALIB_SAMPLES, dev)
+    fregs, iregs = score_table(cands, dev)
+    flush = torch.empty(2 * L2_BYTES // 4, device=dev)
+    kern = lambda: trq_score_cuda(y, fregs, iregs)  # noqa: E731
+    ms = device_ms(torch, kern, 20, flush)
+    per_call = call_ms(torch, kern, 20, flush)
+    # the plain version reads the table to the host (its registers are
+    # static Python values), so it cannot be captured: one call, as timed
+    plain = call_ms(torch, lambda: trq_score_ref(y, fregs, iregs), 5, flush)
+    # the elementwise route from the same registers, and the scoring route
+    # as calibrate_layer calls it (table upload, launch, one read)
+    elementwise = call_ms(torch, lambda: elementwise_scores(torch, y, cands),
+                          5, flush)
+    from repro_torch.core.calibrate import _scores
+    route = call_ms(torch, lambda: _scores(y, cands), 20, flush)
+    moved = sum(a != b for a, b in zip(elementwise_scores(torch, y, cands),
+                                       _scores(y, cands)))
+    log(f"  the elementwise route's f32 sums give other means than the "
+        f"exact sums on {moved} of {len(cands)} candidates (a reading)")
+    inst = score_instructions(y, cands)
+    t_ops = inst["instructions"] / INSTRUCTIONS_PER_S * 1e3
+    t_bytes = (4 * y.numel() + 32 * len(cands) + 16 * len(cands)) \
+        / HBM_BYTES_PER_S * 1e3
+    b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    out = dict(shape=[len(cands), y.numel()], ms=ms, call_ms=per_call,
+               plain_ms=plain, bound_ms=b, bound_by=by,
+               elementwise_route_ms=elementwise, calibrate_route_ms=route,
+               instructions_per_evaluation=inst["per_evaluation"])
+    log(f"  trq_score at {len(cands)} candidates x {y.numel()} samples: "
+        f"{ms:.4f} ms on the device, {per_call:.4f} ms per call, "
+        f"{route:.4f} ms as calibrate_layer scores (upload, launch, read); "
+        f"bound {b:.4f} ms by {by} ({inst['instructions']:.4g} instructions: "
+        f"{inst['per_evaluation']:.2f} an evaluation from the SASS, at "
+        f"{INSTRUCTIONS_PER_S:.4g} a second); plain {plain:.4f} ms per call; "
+        f"the elementwise route ({len(cands)} elementwise launches and the "
+        f"torch ops around them) {elementwise:.4f} ms")
+    log(f"  shortest paths of one evaluation in the SASS, per copy of the "
+        f"unrolled loop: {inst['sass_paths']}")
+    return out
+
+
+SASS_INST = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def shortest_evaluations(sass: str, kernel: str) -> list:
+    """Per unrolled copy of the scoring loop in ``kernel``'s SASS, the
+    fewest instructions one evaluation takes: between two consecutive
+    ``F2F.F64.F32`` (each evaluation widens its squared error once), the
+    shortest path along fall-throughs and forward branches — the skip of
+    the division's slow path taken, no loop back-edge.  Returns one list of
+    path lengths per copy (a copy ends where no forward path joins two
+    widenings: the signed and the unsigned copy of the loop)."""
+    text = next(part for part in re.split(r"\n\s*Function : ", sass)[1:]
+                if kernel in part.split("\n", 1)[0])
+    insts = [(int(a, 16), bool(p), op, args)
+             for a, p, op, args in SASS_INST.findall(text)]
+    at = {a: i for i, (a, *_) in enumerate(insts)}
+    widen = [i for i, x in enumerate(insts) if x[2].startswith("F2F.F64.F32")]
+    copies, run = [], []
+    for a, b in zip(widen, widen[1:]):
+        dist = {a + 1: 1}
+        for i in range(a + 1, b):
+            if i not in dist:
+                continue
+            _, pred, op, args = insts[i]
+            succ = [] if op in ("EXIT", "RET") else [i + 1]
+            if op.startswith("BRA"):
+                t = at.get(int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16))
+                succ = ([i + 1] if pred else []) + \
+                    ([t] if t is not None and t > i else [])
+            for j in succ:
+                if j <= b:
+                    dist[j] = min(dist.get(j, 1 << 30), dist[i] + 1)
+        if b in dist:
+            run.append(dist[b])
+        elif run:
+            copies.append(run)
+            run = []
+    return copies + ([run] if run else [])
+
+
+def score_instructions(y, cands) -> dict:
+    """The scoring entry's work on this table, read from the SASS of this
+    build: C x n evaluations at the least mean instructions an evaluation
+    takes in any copy of the unrolled loop (a lower bound: it leaves out
+    the candidate loop's reductions and a warp's divergent paths)."""
+    from repro_torch.kernels import build
+    copies = shortest_evaluations(build.sass("trq_quant"),
+                                  "trq_score_partialsIf")
+    if len(copies) < 2:
+        raise AssertionError(f"expected a signed and an unsigned copy of "
+                             f"the scoring loop in the SASS, found "
+                             f"{copies}")
+    per = min(sum(c) / len(c) for c in copies)
+    return dict(per_evaluation=per, sass_paths=copies,
+                instructions=per * len(cands) * y.numel())
+
+
 # ---------------------------------------------------------------------------
 # phase 6: K3 against its plain version and an f64 control
 # ---------------------------------------------------------------------------
@@ -1112,15 +1320,19 @@ def plain_kernels():
     """Route K2 and K3 to their plain versions on the card (the package
     dispatches by device and has no such switch)."""
     from repro_torch.kernels.trq_quant import ops as k2_ops
-    from repro_torch.kernels.trq_quant.ref import trq_quant_ref
+    from repro_torch.kernels.trq_quant.ref import trq_quant_ref, \
+        trq_score_ref
     from repro_torch.kernels.xbar_mvm import ops as k3_ops
     from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
-    saved = k2_ops.trq_quant_cuda, k3_ops.xbar_mvm_cuda
-    k2_ops.trq_quant_cuda, k3_ops.xbar_mvm_cuda = trq_quant_ref, xbar_mvm_ref
+    saved = k2_ops.trq_quant_cuda, k2_ops.trq_score_cuda, \
+        k3_ops.xbar_mvm_cuda
+    k2_ops.trq_quant_cuda, k2_ops.trq_score_cuda, k3_ops.xbar_mvm_cuda = \
+        trq_quant_ref, trq_score_ref, xbar_mvm_ref
     try:
         yield
     finally:
-        k2_ops.trq_quant_cuda, k3_ops.xbar_mvm_cuda = saved
+        k2_ops.trq_quant_cuda, k2_ops.trq_score_cuda, \
+            k3_ops.xbar_mvm_cuda = saved
 
 
 def bit_exact_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
@@ -1200,9 +1412,11 @@ def plain_k3_check(torch, rt, prompt, max_len: int) -> dict:
 
 def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     from repro_torch import runtime
-    from repro_torch.core.calibrate import calibrate_layer, summarize, \
-        to_quant_state
-    from repro_torch.kernels.trq_quant import kernel as k2
+    from repro_torch.core import calibrate as calibrate_mod
+    from repro_torch.core.calibrate import _subsample, calibrate_layer, \
+        summarize, to_quant_state
+    from repro_torch.kernels.trq_quant import kernel as k2, score_table, \
+        trq_score
     from repro_torch.kernels.xbar_mvm import kernel as k3
     from repro_torch.models.registry import init
     from repro_torch.pim.backend import ptq_int, ptq_scale
@@ -1235,27 +1449,43 @@ def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
         a_u = ptq_int(x2, ptq_scale(x2, 8), 8) + 128
         return collect_bl_samples(a_u, ptq_int(wf, ptq_scale(wf, 8), 8))
 
-    # -- the main path: every projection calibrated through K2 -------------
-    k2.LAUNCHES = 0
+    # -- the main path: every projection calibrated through K2's scoring
+    # entry, one launch a layer; each layer's subsample is kept
+    def regs(c):
+        p = c.params
+        return (c.chosen, p.mode, p.n_r1, p.n_r2, p.m, p.nu,
+                float(p.delta_r1), float(p.bias))
+
+    k2.LAUNCHES = k2.SCORE_LAUNCHES = 0
+    kept, cal, collect_s = {}, {}, 0.0
     t0 = time.perf_counter()
-    cal = {}
     for _, lin in lins:
-        cal[lin.name] = calibrate_layer(samples(lin), n_max=7)
+        t1 = time.perf_counter()
+        kept[lin.name] = _subsample(samples(lin))
+        torch.cuda.synchronize()
+        collect_s += time.perf_counter() - t1
+        cal[lin.name] = calibrate_layer(kept[lin.name], n_max=7)
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
-    rec["launches"] = k2.LAUNCHES
+    launches = dict(trq_score=k2.SCORE_LAUNCHES, trq_quant=k2.LAUNCHES)
+    rec["launches"] = sum(launches.values())
+    rec["launches_by_entry"] = launches
     summ = summarize(cal)
     kinds = {}
     for c in cal.values():
         key = (c.chosen, c.dist.kind)
         kinds[key] = kinds.get(key, 0) + 1
-    log(f"  calibrated {summ['layers']} layers in {cal_s:.1f} s through "
-        f"{k2.LAUNCHES} K2 launches: {summ['twin_layers']} twin, mean "
-        f"{summ['mean_ops']:.3f} ops per conversion (ratio to 8b "
-        f"{summ['op_ratio_vs_8b']:.3f}); (chosen, distribution): "
+    log(f"  calibrated {summ['layers']} layers in {cal_s:.2f} s (collecting "
+        f"and subsampling the bit-line sums {collect_s:.2f} s of it) "
+        f"through {launches['trq_score']} K2 scoring launches and "
+        f"{launches['trq_quant']} elementwise ones: {summ['twin_layers']} "
+        f"twin, mean {summ['mean_ops']:.3f} ops per conversion (ratio to "
+        f"8b {summ['op_ratio_vs_8b']:.3f}); (chosen, distribution): "
         f"{sorted(kinds.items())}")
-    if k2.LAUNCHES == 0 or summ["layers"] != len(lins):
-        raise AssertionError("calibration did not run through K2")
+    if launches != dict(trq_score=len(lins), trq_quant=0) or \
+            summ["layers"] != len(lins):
+        raise AssertionError(f"calibration did not score each layer in one "
+                             f"K2 launch: {launches} for {len(lins)} layers")
     for d in CHECKED_DEPTHS:
         for name in [f"layer_{d}/attn/{w}" for w in ("wq", "wk", "wv",
                                                      "wo")] + \
@@ -1268,26 +1498,49 @@ def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
                 f"{float(p.delta_r1):.6g} bias={float(p.bias):.0f}, "
                 f"{c.mean_ops:.4f} ops/conversion, mse {c.mse:.4g}")
 
-    # -- plain scoring picks the same registers ----------------------------
-    checked = 0
-    by_name = {lin.name: lin for _, lin in lins}
+    # -- plain scoring picks the same registers on every layer -------------
     with plain_kernels():
-        for d in CHECKED_DEPTHS:
-            for name in [n for n in by_name if n.startswith(f"layer_{d}/")]:
-                want = calibrate_layer(samples(by_name[name]), n_max=7)
-                got = cal[name]
-                regs = [(c.chosen, c.params.mode, c.params.n_r1,
-                         c.params.n_r2, c.params.m, c.params.nu,
-                         float(c.params.delta_r1), float(c.params.bias))
-                        for c in (got, want)]
-                if regs[0] != regs[1]:
-                    raise AssertionError(f"{name}: K2 scoring chose "
-                                         f"{regs[0]}, plain scoring "
-                                         f"{regs[1]}")
-                checked += 1
-    log(f"  plain scoring picked identical registers on {checked} layers "
-        f"({', '.join(sorted({n.split('/')[-1] for n in by_name}))} at "
-        f"depths {CHECKED_DEPTHS})")
+        t1 = time.perf_counter()
+        plain = {n: calibrate_layer(y, n_max=7) for n, y in kept.items()}
+        plain_s = time.perf_counter() - t1
+    differ = [n for n in kept if regs(plain[n]) != regs(cal[n])]
+    for n in differ:
+        log(f"    {n}: K2 scoring chose {regs(cal[n])}, plain scoring "
+            f"{regs(plain[n])}")
+    if differ:
+        raise AssertionError(f"plain scoring picked other registers on "
+                             f"{len(differ)} of {len(kept)} layers")
+    log(f"  plain scoring picked identical registers on all {len(kept)} "
+        f"layers ({plain_s:.1f} s on the kept samples)")
+
+    # -- the elementwise route (f32 sums, one elementwise launch a
+    # candidate) on the same samples: a pick it makes differently must be
+    # an exact tie
+    saved = calibrate_mod._scores
+    calibrate_mod._scores = lambda y, cands: elementwise_scores(torch, y,
+                                                                cands)
+    try:
+        t1 = time.perf_counter()
+        elem = {n: calibrate_layer(y, n_max=7) for n, y in kept.items()}
+        torch.cuda.synchronize()
+        elem_s = time.perf_counter() - t1
+    finally:
+        calibrate_mod._scores = saved
+    moved = [n for n in kept if regs(elem[n]) != regs(cal[n])]
+    for n in moved:
+        sq, ops = trq_score(kept[n], *score_table(
+            [cal[n].params, elem[n].params], kept[n].device))
+        sums = [(float(a), int(b)) for a, b in zip(sq.cpu(), ops.cpu())]
+        log(f"    {n}: picks {regs(cal[n])}, the elementwise route "
+            f"{regs(elem[n])}; exact sums (squared error, ops) "
+            f"{sums[0]!r} and {sums[1]!r}")
+        if sums[0] != sums[1]:
+            raise AssertionError(f"{n}: the elementwise route picked another "
+                                 f"candidate, and not on an exact tie")
+    log(f"  the elementwise route ({elem_s:.2f} s of scoring on the kept "
+        f"samples, against {cal_s - collect_s:.2f} s now) picked the same "
+        f"registers on {len(kept) - len(moved)} of {len(kept)} layers; "
+        f"{len(moved)} exact ties broken otherwise")
     del inputs
     torch.cuda.empty_cache()
 
@@ -1308,7 +1561,9 @@ def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
         f"ADC-op ratio {ratio:.4f}x (the paper reports 1.6-2.3x)")
     return qs, dict(layers=summ["layers"], twin_layers=summ["twin_layers"],
                 mean_ops=summ["mean_ops"], calibrate_s=cal_s,
-                k2_launches=rec["launches"], plain_checked=checked,
+                collect_s=collect_s, k2_launches=launches,
+                plain_checked=len(kept), plain_s=plain_s,
+                elementwise_route_s=elem_s, elementwise_ties=len(moved),
                 tokens_per_s=run["tokens_per_s"],
                 mean_ttft_ms=run["mean_ttft_ms"],
                 total_ad_ops=run["total_ad_ops"], conversions=conversions,
@@ -1823,8 +2078,9 @@ def main(argv) -> int:
     cfg = pallas_config()
     serve = serve_phase(torch, rec, cfg)
     torch.cuda.empty_cache()
-    log("phase 5: trq_quant against its plain version")
+    log("phase 5: trq_quant against its plain version, both entries")
     k2_phase(torch, rec2)
+    score = k2_score_phase(torch, rec2)
     log("phase 6: xbar_mvm against its plain version and an f64 control")
     k3_phase(torch, rec3)
     log("phase 7: serve full-width llama3.2-3b on bit_exact")
@@ -1852,10 +2108,17 @@ def main(argv) -> int:
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
-    for r, shape in ((rec, HEADLINE_SHAPE), (rec2, [CALIB_SAMPLES]),
-                     (rec3, HEADLINE_SHAPE)):
-        head = next(x for x in r["shapes"] if tuple(x["shape"]) ==
-                    tuple(shape))
+    # K2's headline is the entry its main path launches, the scoring one
+    elementwise = next(x for x in rec2["shapes"]
+                       if x["shape"] == [CALIB_SAMPLES])
+    by_entry = rec2.pop("launches_by_entry")
+    rec2["entries"] = dict(
+        trq_score=dict(score, launches=by_entry["trq_score"]),
+        trq_quant=dict(elementwise, launches=by_entry["trq_quant"]))
+    for r, head in ((rec, next(x for x in rec["shapes"] if tuple(
+            x["shape"]) == HEADLINE_SHAPE)), (rec2, score),
+                    (rec3, next(x for x in rec3["shapes"] if tuple(
+                        x["shape"]) == HEADLINE_SHAPE))):
         r.update(shape=head["shape"], ms=head["ms"],
                  plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                  bound_by=head["bound_by"], library_ms=None)

@@ -9,10 +9,25 @@ No retraining — only calibration samples of each layer's bit-line outputs.
 The samples stay where they are: a layer's bit-line sums on the GPU (up to
 gigabytes at full width) are subsampled by indices drawn on the host with
 numpy's ``default_rng(0)`` — exactly the reference's draw — and gathered
-on the device.  Every candidate is scored with one launch of the
-``trq_quant`` kernel (q and the per-conversion op count), and a layer's
-scores cross to the host once.  The search logic is the reference's, line
-for line, so identical samples pick identical registers.
+on the device.  All of a layer's candidates, the uniform fallbacks and the
+TRQ register sets, are scored in one ``trq_score`` call, and the (C, 2)
+sums cross to the host once.
+
+How the scores are summed, and why: the search compares MSEs (the
+feasibility test and the tie-break on equal ops), so sums whose last bits
+depend on the reduction order could make the CUDA kernel and its plain
+version pick different registers.  Squared errors (each squared in f32, as
+the reference's ``jnp.square(q - x)``) are therefore summed in f64 and op
+counts in int64; each total is rounded once to f32 and multiplied by
+``f32(1/n)``, the reference's mean.  On integral steps over integer
+bit-line sums (every TRQ candidate of an ``ideal`` or ``normal`` layer)
+each squared error is an integer below 2^15 and 65,536 of them stay below
+2^31, so the f64 sum is exact in any order and both routes give the same
+bits; on a fractional step (the uniform fallbacks, an ``other`` layer's
+candidates) the two f64 sums differ by a few ulps at most and round to the
+same f32 unless they straddle a rounding midpoint.  The search logic is
+the reference's, line for line — the same candidate order, keys and
+first-wins ties — so identical samples pick identical registers.
 """
 from __future__ import annotations
 
@@ -22,7 +37,7 @@ from typing import Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.trq_quant import trq_quant as trq_quant_kernel
+from ..kernels.trq_quant import score_table, trq_score
 from .distribution import DistributionInfo, classify, r_ideal_bits
 from .energy import R_ADC_DEFAULT
 from .trq import TRQParams, make_params
@@ -61,34 +76,18 @@ def _subsample(y, n: int = MAX_CALIB_SAMPLES) -> torch.Tensor:
 
 def _scores(y: torch.Tensor, cands: Sequence[TRQParams]) -> list:
     """[(mse, mean_ops)] of every candidate on samples ``y``: one
-    ``trq_quant`` launch per candidate; the registers go to the device and
-    the scores come back to the host once."""
-    if not cands:
-        return []
-    regs = torch.tensor([[float(p.delta_r1), float(p.bias)] for p in cands],
-                        dtype=torch.float32).to(y.device)
-    inv_n = 1.0 / y.numel()      # the reference's mean: sum * f32(1/n)
-    rows = []
-    for i, p in enumerate(cands):
-        q, ops = trq_quant_kernel(
-            y, p.replace(delta_r1=regs[i, 0], bias=regs[i, 1]))
-        rows.append(torch.stack([torch.sum(torch.square(q - y)) * inv_n,
-                                 ops.sum().float() * inv_n]))
-    return [(float(a), float(b)) for a, b in torch.stack(rows).cpu().numpy()]
+    ``trq_score`` launch and one read of the sums (see the module note)."""
+    sq, ops = trq_score(y, *score_table(cands, y.device))
+    sums = torch.stack((sq, ops.double()), 1).cpu().numpy()
+    inv_n = np.float32(1.0 / y.numel())      # the reference's mean
+    return [(float(a), float(b)) for a, b in sums.astype(np.float32) * inv_n]
 
 
-def _best_uniform(y: torch.Tensor, n_bits: int, v_grids: Sequence[float],
-                  r_adc: int) -> tuple:
-    """Best plain N-bit uniform ADC over the V_grid candidates (Alg.1 l.23).
-
-    The V_grid candidates are expressed on the R_ADC-bit base grid; an N-bit
-    uniform ADC re-uses them scaled by 2**(r_adc - n_bits) so its 2**N levels
-    still span the full range."""
-    scale = 2.0 ** (r_adc - n_bits)
-    cands = [make_params(delta_r1=float(vg * scale), bias=0.0, n_r1=n_bits,
-                         n_r2=n_bits, m=0, mode="uniform") for vg in v_grids]
+def _best_uniform(cands: Sequence[TRQParams], scores: Sequence) -> tuple:
+    """Best plain N-bit uniform ADC over the V_grid candidates (Alg.1 l.23):
+    the first of the least MSE."""
     best, best_mse = None, np.inf
-    for p, (mse, _) in zip(cands, _scores(y, cands)):
+    for p, (mse, _) in zip(cands, scores):
         if mse < best_mse:
             best, best_mse = p, mse
     return best, best_mse
@@ -100,20 +99,27 @@ def _v_grid_candidates(y_max: float, r_adc: int, alpha: float, beta: float,
     return np.linspace(alpha * base, beta * base, count, dtype=np.float64)
 
 
-def calibrate_layer(y, *, n_max: int, r_adc: int = R_ADC_DEFAULT,
-                    alpha: float = 0.1, beta: float = 1.2,
-                    n_candidates: int = 50, m_max: int = 7,
-                    max_bias_candidates: int = 16) -> LayerCalibration:
-    """Inner loop of Algorithm 1 (lines 5-17) for one layer.  ``y``: the
-    layer's bit-line samples, a numpy array or a tensor on any device."""
-    y = _subsample(y)
-    dist = classify(y.cpu().numpy())
+def layer_candidates(dist: DistributionInfo, *, n_max: int,
+                     r_adc: int = R_ADC_DEFAULT, alpha: float = 0.1,
+                     beta: float = 1.2, n_candidates: int = 50,
+                     m_max: int = 7, max_bias_candidates: int = 16) -> tuple:
+    """Algorithm 1's candidates for a layer judged ``dist`` (lines 5-16 and
+    line 23's fallback): ``(n_r2, uniform, twin)``, the plain N_R2-bit ADCs
+    over the V_grid and the TRQ register sets, each in the reference's
+    order."""
     r_ideal = dist.r_ideal
     # R2 is anchored at 0 (Eq. 7), so the coarse grid must *cover* [0, y_max]
     # even when the samples' span (r_ideal) starts above zero.
     r_cover = max(r_ideal, r_ideal_bits(min(dist.y_min, 0.0), dist.y_max))
     n_r2 = max(min(n_max, r_cover), 1)
     v_grids = _v_grid_candidates(dist.y_max, r_adc, alpha, beta, n_candidates)
+
+    # The V_grid candidates are expressed on the R_ADC-bit base grid; an
+    # N-bit uniform ADC re-uses them scaled by 2**(r_adc - n_bits) so its
+    # 2**N levels still span the full range.
+    scale = 2.0 ** (r_adc - n_r2)
+    uniform = [make_params(delta_r1=float(vg * scale), bias=0.0, n_r1=n_r2,
+                           n_r2=n_r2, m=0, mode="uniform") for vg in v_grids]
 
     candidates: list = []
     if dist.kind in ("ideal", "normal"):
@@ -143,14 +149,26 @@ def calibrate_layer(y, *, n_max: int, r_adc: int = R_ADC_DEFAULT,
                 candidates.append(make_params(
                     delta_r1=float(vg * rel), bias=0.0,
                     n_r1=n_r2, n_r2=n_r2, m=m, nu=1))
+    return n_r2, uniform, candidates
 
-    uni_p, uni_mse = _best_uniform(y, n_r2, v_grids, r_adc)
+
+def calibrate_layer(y, *, n_max: int, **search) -> LayerCalibration:
+    """Inner loop of Algorithm 1 (lines 5-17) for one layer.  ``y``: the
+    layer's bit-line samples, a numpy array or a tensor on any device;
+    ``search``: ``r_adc`` and the candidate grid's knobs
+    (:func:`layer_candidates`)."""
+    y = _subsample(y)
+    dist = classify(y.cpu().numpy())
+    n_r2, uniform, candidates = layer_candidates(dist, n_max=n_max, **search)
+    scores = _scores(y, uniform + candidates)
+
+    uni_p, uni_mse = _best_uniform(uniform, scores[:len(uniform)])
     uni_ops = float(n_r2)    # uniform N-bit conversion = N comparator cycles
 
     # Eq. 9 (energy) subject to Eq. 10 (MSE no worse than the uniform
     # fallback); among feasible candidates pick min ops, tie-break on MSE.
     best: Optional[tuple] = None
-    for p, (mse, ops) in zip(candidates, _scores(y, candidates)):
+    for p, (mse, ops) in zip(candidates, scores[len(uniform):]):
         feasible = mse <= uni_mse * 1.05 + 1e-12
         key = (not feasible, ops, mse)
         if best is None or key < best[0]:

@@ -3,7 +3,9 @@
 ``trq_group_mvm``  the per-128-row-group signed-TRQ matmul with fused A/D
                    op count (port of the Pallas ``trq_group_mvm`` kernel).
 ``trq_quant``      elementwise TRQ fake-quant and op count (port of the
-                   Pallas ``trq_quant`` kernel); Algorithm 1 scores with it.
+                   Pallas ``trq_quant`` kernel), and ``trq_score``, which
+                   sums the error and ops of a whole table of candidate
+                   registers in one launch: Algorithm 1 scores with it.
 ``xbar_mvm``       the bit-exact sliced crossbar MVM on bit-mask planes,
                    popcount bit-line sums, one conversion each (port of the
                    Pallas ``xbar_mvm`` kernel); backs ``bit_exact``.

@@ -96,6 +96,15 @@ def build(names=KERNELS, force: bool = False) -> dict:
     return {n: _finish(n, job) for n, job in jobs.items()}
 
 
+def sass(name: str) -> str:
+    """The SASS of the library for ``csrc/<name>.cu`` (``cuobjdump
+    -sass``), building it first: the instructions of each kernel."""
+    load(name)
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it at first use."""
     with _LOCK:

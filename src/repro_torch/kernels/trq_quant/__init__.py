@@ -1,1 +1,1 @@
-from .ops import trq_quant
+from .ops import score_table, trq_quant, trq_score

@@ -4,11 +4,12 @@ distribution judgement and energy accounting with the reference
 
 The same bit-line samples go to both: the quickstart's skewed distribution
 (``examples/quickstart.py``) and ``collect_bl_samples`` of small layers.
-The port scores every candidate through the ``trq_quant`` kernel (its
-plain version on the CPU); the search must pick identical registers —
-the same mode, widths, bias, nu and f32 step — and the same mean op count.
-MSE values may differ in the last bits (another f32 summation order), so
-they are compared at rtol=1e-5.
+The port scores all of a layer's candidates in one call of the
+``trq_quant`` kernel's scoring entry (its plain version on the CPU); the
+search must pick identical registers — the same mode, widths, bias, nu and
+f32 step — and the same mean op count.  MSE values may differ in the last
+bits (the port sums in f64, the reference in f32), so they are compared at
+rtol=1e-5.
 """
 import dataclasses
 
@@ -149,3 +150,62 @@ def test_energy_accounting_matches_reference(rng):
     assert float(tenergy.mean_ops_trq(torch.from_numpy(y), tmake(**kw))) \
         == float(jenergy.mean_ops_trq(jnp.asarray(y), jmake(**kw)))
     assert tenergy.mean_ops_uniform() == jenergy.mean_ops_uniform() == 8.0
+
+
+def _count_scoring(monkeypatch):
+    """Count the calls of the scoring entry's CPU route."""
+    from repro_torch.kernels.trq_quant import ops as k2_ops
+    calls = []
+    ref = k2_ops.trq_score_ref
+
+    def counted(*a):
+        calls.append(a[1].shape[0])
+        return ref(*a)
+    monkeypatch.setattr(k2_ops, "trq_score_ref", counted)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["skewed", "uniform-a", "high-a"])
+def test_calibrate_layer_scores_in_one_call(monkeypatch, case):
+    """One scoring call per layer, over every candidate the search reads
+    (the uniform fallbacks and the TRQ registers), and still the
+    reference's pick."""
+    if case == "skewed":
+        y_t = y_j = _skewed(seed=3)
+    else:
+        rng = np.random.default_rng(54)
+        y_t, y_j = _layer_samples(rng, 16, 300, 24,
+                                  lo=0 if case == "uniform-a" else 200)
+    calls = _count_scoring(monkeypatch)
+    got = tcal.calibrate_layer(
+        torch.from_numpy(y_t) if case == "skewed" else y_t, n_max=7)
+    n_r2, uniform, twin = tcal.layer_candidates(got.dist, n_max=7)
+    assert calls == [len(uniform) + len(twin)]
+    _same(got, jcal.calibrate_layer(y_j, n_max=7))
+    calls.clear()
+    tcal.calibrate_model({"a": y_t, "b": _skewed(seed=4, n=20_000)})
+    assert len(calls) == 2
+
+
+def test_equal_scores_first_candidate_wins(monkeypatch):
+    """Equal scores on every candidate: the first in the reference's order
+    wins, among the uniform fallbacks and among the TRQ registers."""
+    y = _skewed(seed=5, n=65536)
+    n = len(y)
+
+    def tied(y_, fregs, iregs):                   # mean ops 1.0, mse 0.0
+        c = fregs.shape[0]
+        return (torch.zeros(c, dtype=torch.float64),
+                torch.full((c,), n, dtype=torch.int64))
+    monkeypatch.setattr(tcal, "trq_score", tied)
+    monkeypatch.setattr(jcal, "quant_mse", lambda y_, p: 0.0)
+    monkeypatch.setattr(jcal, "_score", lambda y_, p: (0.0, 1.0))
+    got = tcal.calibrate_layer(torch.from_numpy(y), n_max=7)
+    want = jcal.calibrate_layer(y, n_max=7)
+    _, uniform, twin = tcal.layer_candidates(got.dist, n_max=7)
+    first = dataclasses.replace(got, params=twin[0])
+    assert got.chosen == "twin" and _key(got) == _key(first)
+    assert _key(got) == _key(want)
+    tie = [(0.0, float(uniform[0].n_r2))] * len(uniform)
+    assert tcal._best_uniform(uniform, tie) == (uniform[0], 0.0)
+    assert got.mse == got.uniform_mse == 0.0 and got.mean_ops == 1.0

@@ -260,18 +260,87 @@ def test_bit_exact_runtime_launches_xbar_mvm(card):
 
 @pytest.mark.cuda
 def test_calibration_scores_through_trq_quant(card):
+    """A layer's calibration is one launch of the scoring entry and no
+    elementwise K2 launch, and picks what the plain version picks on the
+    CPU with the same scores bit for bit (integer samples: exact sums)."""
     from repro_torch.core.calibrate import calibrate_layer
     from repro_torch.kernels.trq_quant import kernel as k2
     rng = np.random.default_rng(0)
     y = np.round(np.abs(rng.normal(0, 2.5, 20_000)))
-    before = k2.LAUNCHES
+    before = k2.LAUNCHES, k2.SCORE_LAUNCHES
     got = calibrate_layer(torch.from_numpy(y).to(card), n_max=7)
-    assert k2.LAUNCHES > before
+    assert (k2.LAUNCHES, k2.SCORE_LAUNCHES) == (before[0], before[1] + 1)
     want = calibrate_layer(y, n_max=7)          # plain version, CPU
-    assert (got.chosen, got.params.n_r1, got.params.n_r2, got.params.m,
-            float(got.params.delta_r1), float(got.params.bias)) == (
-        want.chosen, want.params.n_r1, want.params.n_r2, want.params.m,
-        float(want.params.delta_r1), float(want.params.bias))
+    assert _calibration(got) == _calibration(want)
+
+
+def _calibration(c):
+    """A layer's pick and its scores, as plain values."""
+    p = c.params
+    return (c.chosen, p.mode, p.n_r1, p.n_r2, p.m, p.nu, float(p.delta_r1),
+            float(p.bias), c.mse, c.mean_ops, c.uniform_mse)
+
+
+def _score_table(table, n):
+    """The first ``n`` of 65,536 samples and the candidates of
+    chip_smoke.py's phase-5 tables: the PARAM_GRID registers (signed,
+    unsigned, uniform; steps 1.0 and 0.7) on random floats, and the tables
+    calibrate_layer builds for integer bit-line-like samples of a
+    ``normal`` and an ``other`` layer."""
+    from repro_torch.core.calibrate import layer_candidates
+    from repro_torch.core.distribution import classify
+    rng = np.random.default_rng(12)
+    if table == "param_grid":
+        y = rng.normal(0, 30, 65536)
+        modes = [dict(signed=True), dict(signed=False),
+                 dict(signed=True, mode="uniform")]
+        return y[:n].astype(np.float32), [
+            make_params(delta_r1=d, **pk, **mode) for pk in PARAM_GRID
+            for mode in modes for d in (1.0, 0.7)]
+    y = rng.normal(32, 3, 65536).round() if table == "normal" else \
+        rng.integers(0, 129, 65536)
+    dist = classify(y)
+    assert dist.kind == table
+    _, uniform, twin = layer_candidates(dist, n_max=7)
+    return y[:n].astype(np.float32), uniform + twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 5001])
+@pytest.mark.parametrize("table", ["param_grid", "normal", "other"])
+def test_trq_score_kernel_equals_plain(card, table, n):
+    """Op sums equal; squared-error sums equal once rounded to f32 (what
+    the search reads), and bitwise in f64 where every error is an integer
+    (integer samples on an integral step: the TRQ candidates of the
+    normal table; its uniform fallbacks have fractional steps)."""
+    from repro_torch.kernels.trq_quant import kernel as k2, score_table
+    from repro_torch.kernels.trq_quant.ref import trq_score_ref
+    y, cands = _score_table(table, n)
+    y = torch.from_numpy(y).to(card)
+    fregs, iregs = score_table(cands, card)
+    before = k2.SCORE_LAUNCHES
+    sq, ops = k2.trq_score_cuda(y, fregs, iregs)
+    assert k2.SCORE_LAUNCHES == before + 1
+    sq_r, ops_r = trq_score_ref(y, fregs, iregs)
+    again = k2.trq_score_cuda(y, fregs, iregs)
+    torch.cuda.synchronize()
+    assert sq.shape == ops.shape == (len(cands),)
+    assert torch.equal(ops, ops_r)
+    assert torch.equal(sq.float(), sq_r.float())
+    assert torch.equal(sq, again[0]) and torch.equal(ops, again[1])
+    exact = [i for i, p in enumerate(cands) if table != "param_grid"
+             and float(p.delta_r1).is_integer()]
+    assert len(exact) >= (104 if table == "normal" else 0)
+    assert torch.equal(sq[exact], sq_r[exact])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "other"])
+def test_calibrate_layer_on_the_card_equals_plain(card, kind):
+    from repro_torch.core.calibrate import calibrate_layer
+    y, _ = _score_table(kind, 65536)
+    got = calibrate_layer(torch.from_numpy(y).to(card), n_max=7)
+    assert _calibration(got) == _calibration(calibrate_layer(y, n_max=7))
 
 
 @pytest.mark.cuda

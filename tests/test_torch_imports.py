@@ -56,6 +56,14 @@ def _c_params(src: str, fn: str):
     return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
 
 
+def _ctypes_of(params):
+    """The ctypes argument list a C parameter list needs."""
+    import ctypes
+    return [ctypes.c_void_p if "*" in p else
+            ctypes.c_longlong if "long long" in p else ctypes.c_int
+            for p in params]
+
+
 @pytest.mark.parametrize("name", ["trq_group_mvm", "trq_quant", "xbar_mvm"])
 def test_ctypes_bindings_match_the_c_prototypes(name):
     """The GPU compiler is not available here, so the one interface it
@@ -64,7 +72,6 @@ def test_ctypes_bindings_match_the_c_prototypes(name):
     int where it takes an int, ``long long`` where it takes one; and the
     wrapper's loader of that launcher exists (the CPU path never calls
     it)."""
-    import ctypes
     import importlib
     from repro_torch.kernels import build
     assert name in build.KERNELS
@@ -72,7 +79,15 @@ def test_ctypes_bindings_match_the_c_prototypes(name):
     params = _c_params(src, f"{name}_launch")
     kernel = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
     assert callable(getattr(kernel, "_lib", None)), "no library loader"
-    want = [ctypes.c_void_p if "*" in p else
-            ctypes.c_longlong if "long long" in p else ctypes.c_int
-            for p in params]
-    assert list(kernel._ARGTYPES) == want
+    assert list(kernel._ARGTYPES) == _ctypes_of(params)
+
+
+def test_score_binding_matches_its_prototype():
+    """The same for the second entry of ``trq_quant.cu``, the scoring
+    launcher, bound by ``_score_lib``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.trq_quant import kernel
+    params = _c_params((build.CSRC / "trq_quant.cu").read_text(),
+                       "trq_score_launch")
+    assert callable(kernel._score_lib)
+    assert list(kernel._SCORE_ARGTYPES) == _ctypes_of(params)

@@ -6,6 +6,11 @@ On a CPU tensor the port's wrapper runs the kernel's plain version
 plain version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
 phase 5).  Bars are the reference's own (``tests/test_kernels.py``): q at
 ``atol=0`` with op counts equal, f16 input at ``atol=1e-3``.
+
+The scoring entry (``trq_score``) is held to the elementwise route: its op
+sums exactly, its squared-error sums bitwise against an f64 sum of the
+elementwise f32 errors, and on integer samples with integral steps against
+numpy's exact int64 sums.
 """
 import numpy as np
 import pytest
@@ -17,7 +22,9 @@ from repro.core.trq import make_params as jmake  # noqa: E402
 from repro.kernels import trq_quant_pallas  # noqa: E402
 from repro_torch.core.trq import make_params as tmake  # noqa: E402
 from repro_torch.core.trq import trq_ad_ops, trq_quant  # noqa: E402
+from repro_torch.kernels.trq_quant import score_table, trq_score  # noqa: E402
 from repro_torch.kernels.trq_quant import trq_quant as k2  # noqa: E402
+from repro_torch.kernels.trq_quant import kernel as k2_kernel  # noqa: E402
 from repro_torch.kernels.trq_quant.ref import trq_quant_ref  # noqa: E402
 
 PARAM_GRID = [
@@ -87,3 +94,79 @@ def test_k2_takes_bf16_and_rejects_other_devices(rng):
     assert torch.equal(q_b, q_f)
     with pytest.raises(ValueError, match="no kernel for tensors on meta"):
         k2(torch.empty(4, device="meta"), p)
+
+
+# ---------------------------------------------------------------------------
+# the scoring entry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+@pytest.mark.parametrize("delta", [1.0, 0.7])
+@pytest.mark.parametrize("mode", MODES, ids=["signed", "unsigned",
+                                             "uniform-signed", "uniform"])
+@pytest.mark.parametrize("pk", PARAM_GRID, ids=["4-4", "2-6", "3-5-b3",
+                                                "7-7"])
+def test_score_equals_the_elementwise_route(pk, mode, delta, dtype):
+    rng = np.random.default_rng(7)
+    y = rng.normal(0, 30, 4099)
+    if not mode["signed"]:
+        y = np.abs(y) * np.where(rng.random(y.shape) < 0.1, -1, 1)
+    y = torch.from_numpy(y.astype(dtype))
+    p = tmake(delta_r1=delta, **pk, **mode)
+    # the candidate between two others: a row of the table is its own
+    table = [tmake(delta_r1=0.3, n_r1=2, n_r2=3, m=1), p,
+             tmake(delta_r1=2.5, n_r1=5, n_r2=5, m=0, mode="uniform")]
+    sq, ops = trq_score(y, *score_table(table))
+    assert sq.dtype == torch.float64 and ops.dtype == torch.int64
+    assert sq.shape == ops.shape == (3,)
+    q, o = k2(y, p)
+    want = torch.sum((q - y.float()).square(), dtype=torch.float64)
+    assert torch.equal(sq[1], want)
+    assert int(ops[1]) == int(o.sum(dtype=torch.int64))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_score_sums_are_exact_on_integer_samples(signed):
+    """Integer samples, integral steps: every squared error is an integer
+    below 2^15, so the f64 sums equal numpy's int64 sums, in any order."""
+    rng = np.random.default_rng(8)
+    y = rng.binomial(128, 0.25, 65536).astype(np.int64)
+    if signed:
+        y = y * np.where(rng.random(y.shape) < 0.5, -1, 1)
+    table = [tmake(delta_r1=1.0, signed=signed, **pk, **mode)
+             for pk in PARAM_GRID for mode in (dict(), dict(mode="uniform"))]
+    sq, ops = trq_score(torch.from_numpy(y.astype(np.float32)),
+                        *score_table(table))
+    for i, p in enumerate(table):
+        q, o = k2(torch.from_numpy(y.astype(np.float32)), p)
+        qi = q.numpy().astype(np.int64)
+        assert np.array_equal(qi, q.numpy())          # integral grid
+        assert float(sq[i]) == float(np.sum((qi - y) ** 2))
+        assert int(ops[i]) == int(np.sum(o.numpy().astype(np.int64)))
+
+
+@pytest.mark.parametrize("case", ["width", "mode", "devices"])
+def test_score_table_refuses_what_the_kernel_does_not_take(case):
+    y = torch.zeros(16)
+    if case == "width":
+        with pytest.raises(ValueError, match="out of range"):
+            score_table([tmake(n_r1=25, n_r2=4, m=3)])
+    elif case == "mode":
+        with pytest.raises(ValueError, match="unknown mode"):
+            score_table([tmake(n_r1=4, n_r2=4, m=3, mode="log")])
+    else:
+        fregs, iregs = score_table([tmake(n_r1=4, n_r2=4, m=3)])
+        with pytest.raises(ValueError, match="mixed devices"):
+            trq_score(y, fregs.to("meta"), iregs)
+
+
+def test_score_slice_matches_the_source():
+    """The wrapper sizes the scratch by ``SCORE_SLICE`` samples a block:
+    the source's ``kScoreThreads * kScorePer`` (the launcher refuses any
+    other size)."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "trq_quant.cu").read_text()
+    val = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kScore\w+) = (\d+);", src)}
+    assert k2_kernel.SCORE_SLICE == val["kScoreThreads"] * val["kScorePer"]
