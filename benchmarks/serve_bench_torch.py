@@ -4,8 +4,9 @@ throughput, TTFT and per-request A/D conversions (a port of
 ``benchmarks/serve_bench.py``).
 
   PYTHONPATH=src python -m benchmarks.serve_bench_torch --out out/serve.json
-      # the card: full-width llama3.2-3b (and rwkv6-7b in mixed_archs),
-      # seeded weights, --backend pallas (default) or bit_exact
+      # the card: full-width llama3.2-3b (and rwkv6-7b and whisper-medium
+      # in mixed_archs), seeded weights, --backend pallas (default) or
+      # bit_exact
   PYTHONPATH=src python -m benchmarks.serve_bench_torch --device cpu --quick \
       --out out/serve_cpu.json
       # the CPU: the smoke config, --backend fake_quant (default)
@@ -18,9 +19,9 @@ gates):
   hash-consed prefix pages is a recorded number;
 * ``long_context`` — few requests with prompts near ``max_len``;
 * ``mixed_archs`` — one small trace per architecture family: llama3.2-3b
-  (attention) and rwkv6-7b (recurrent, no paged leaf, no prefix reuse).
-  The port has no whisper yet (the reference's full run serves it), which
-  the record says in ``pending_archs``.
+  (attention), rwkv6-7b (recurrent, no paged leaf, no prefix reuse) and,
+  in the full run only as in the reference, whisper-medium (enc-dec: 8
+  zero frames per prompt, static cross-KV pages, no prefix reuse).
 
 The JSON keeps the reference's record layout (``{"bench": "serve",
 "quick", "scenarios": {...}}``) plus the device, backend and width it ran
@@ -39,10 +40,9 @@ import numpy as np
 
 ARCH = "llama3.2-3b"
 RECURRENT_ARCH = "rwkv6-7b"
+ENCDEC_ARCH = "whisper-medium"
 # the reference's mixed_archs families the port does not serve yet
-PENDING_ARCHS = {
-    "whisper-medium": "not ported: ROADMAP.md queue 1, item 3 (enc-dec)",
-}
+PENDING_ARCHS: dict = {}
 
 
 def build(arch: str = ARCH, backend: str = "fake_quant", device="cuda",
@@ -55,6 +55,7 @@ def build(arch: str = ARCH, backend: str = "fake_quant", device="cuda",
     kernels at first use and warming the libraries stay out of the first
     scenario's TTFT."""
     from repro_torch import runtime
+    from repro_torch.launch.serve import frames_stub
     from repro_torch.models.registry import get_config, init
 
     device = runtime.resolve_device(device)
@@ -66,19 +67,23 @@ def build(arch: str = ARCH, backend: str = "fake_quant", device="cuda",
     state = weights(cfg) if weights is not None else \
         init(cfg, seed=0, device=device)
     rt = runtime.compile(cfg, state, device=device)
-    (_, cache), _ = rt.prefill(np.zeros((1, 16), np.int32), max_len=128)
+    (_, cache), _ = rt.prefill(np.zeros((1, 16), np.int32),
+                               frames_stub(cfg)(1, 16), max_len=128)
     rt.decode(np.zeros((1, 1), np.int32), cache)
     return cfg, rt
 
 
 def serve(built, prompts, *, max_new: int, max_batch: int = 2,
           max_len: int = 128, reuse: bool = True, block_size: int = 16):
-    """Serve ``prompts`` greedily; returns (record, engine)."""
+    """Serve ``prompts`` greedily (an encoder-decoder's prefills get 8
+    zero frames, as the reference bench's); returns (record, engine)."""
+    from repro_torch.launch.serve import frames_stub
     from repro_torch.serve import ServeEngine
 
-    _, rt = built
+    cfg, rt = built
     eng = ServeEngine(rt, max_batch=max_batch, max_len=max_len, paged=True,
-                      block_size=block_size, prefix_reuse=reuse)
+                      extra_inputs=frames_stub(cfg), block_size=block_size,
+                      prefix_reuse=reuse)
     t0 = time.perf_counter()
     for p in prompts:
         eng.submit(p, max_new_tokens=max_new)
@@ -149,16 +154,22 @@ def mixed_prompts(vocab: int) -> list:
 
 
 def mixed_archs(built, quick: bool, weights=None) -> dict:
-    """The reference's scenario: the same trace on ``built`` (llama) and on
-    rwkv6-7b, built on the same backend and device with ``weights``; the
-    aggregates are over the archs served here."""
+    """The reference's scenario: the same trace on ``built`` (llama), on
+    rwkv6-7b and, in the full run, on whisper-medium, each built on the
+    same backend and device with ``weights`` (one at a time: an arch's
+    weights are freed before the next is built); the aggregates are over
+    the archs served here."""
     _, rt = built
     out = {"archs": {}}
-    for b in (built, build(RECURRENT_ARCH, rt.backend, rt.device, weights)):
+    archs = [None, RECURRENT_ARCH] + ([] if quick else [ENCDEC_ARCH])
+    for arch in archs:
+        b = built if arch is None else build(arch, rt.backend, rt.device,
+                                             weights)
         prompts = mixed_prompts(b[0].vocab_size)
         out["archs"][b[0].name] = serve(b, prompts,
                                         max_new=3 if quick else 6,
                                         max_len=64)[0]
+        del b
     if not quick:
         out["pending_archs"] = dict(PENDING_ARCHS)
     recs = out["archs"].values()

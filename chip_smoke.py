@@ -22,10 +22,13 @@ which fails the run on any error:
            group: a boundary flip from another f32 summation order), and
            on the ``w_gate`` of one 2,048-token prefill; rwkv6-7b's four
            projection shapes (4,096 -> 4,096 / 14,336 / 65,536 and 14,336
-           -> 4,096) at M = 1, 2, 4, 8, 16, 32 and 64, exact and at the
+           -> 4,096) at M = 1, 2, 4, 8, 16, 32 and 64, and whisper-medium's
+           three (1,024 -> 1,024 / 4,096 and 4,096 -> 1,024) at M = 4, 8
+           and 1,500, exact and at the
            float bar with equal ops; times of the whole call (both passes)
            at M = 4, 16, 64 and that prefill (on rwkv6's shapes, at those
-           phase 11's trace gives the kernel, ``RWKV_PATH``) beside the
+           phase 11's trace gives the kernel, ``RWKV_PATH``; on whisper's,
+           at phase 12's, ``WHISPER_PATH``) beside the
            bound (bf16 weights read at 2 bytes each): the device time (20
            launches, each after an L2 flush, replayed as one CUDA graph,
            less the flushes), the time of one call as a caller sees it,
@@ -71,7 +74,8 @@ which fails the run on any error:
 6. K3      ``xbar_mvm`` against its plain version at the four projection
            shapes for M = 1, 4, 16, 17 and 64 (decode, continued prefill,
            prefill and the ragged tiles), rwkv6-7b's four projection shapes
-           at M = 1, 2, 4, 8, 16, 32 and 64, ragged 3 x 300 x 130, and one
+           at M = 1, 2, 4, 8, 16, 32 and 64, whisper-medium's three at M =
+           4, 8 and 1,500, ragged 3 x 300 x 130, and one
            shape with k_i = k_w = 4 (the general body), with the default
            registers, a fractional step and the lossless mode: op counts
            (total and per output) exactly equal everywhere; y bitwise equal
@@ -80,7 +84,8 @@ which fails the run on any error:
            version alike, within the recursive-summation bound
            k_i k_w G u |y| (u = 2^-24) of the f64 control; each kernel
            body's shapes (the wrapper's shape plan) are printed; timed at
-           M = 4, 16 and 64 (on rwkv6's shapes, at phase 11's) beside the
+           M = 4, 16 and 64 (on rwkv6's shapes, at phase 11's; on
+           whisper's, at phase 12's) beside the
            bound (packed bytes at 3.35 TB/s or
            the 0/1 products at the card's one-bit tensor-core rate,
            ``B1_OPS_PER_S``) and ``torch._int_mm`` on the unpacked int8 0/1
@@ -119,7 +124,10 @@ which fails the run on any error:
            serves the prefix and strictly saves A/D ops and the per-layer
            census (``pim.ad_ops_tally``) of one prefill sums to the
            engine's total bit for bit; then ``Runtime.save`` of phase 8's
-           calibrated QuantState must load back equal;
+           calibrated QuantState must load back equal; then the full
+           ``mixed_archs`` scenario on ``pallas`` (llama3.2-3b, rwkv6-7b
+           and whisper-medium with 8 zero frames a prompt, at full width),
+           which must serve all three archs with nothing pending;
 10. noise  the ``noisy`` backend: with no CrossbarModel and with the
            all-zeros one, a full-width prefill and one ``w_gate`` call give
            y and A/D ops bitwise equal to ``bit_exact``, through K3; a
@@ -152,9 +160,36 @@ which fails the run on any error:
            prefill against the
            per-token recurrence (the state it carries and its outputs), at
            the model's head shapes and through layer 0's time-mix.
+12. whisper full-width whisper-medium (24 encoder and 24 decoder layers,
+           d=1,024, 16 heads of 64, d_ff=4,096, vocab 51,865, tied
+           embeddings, every projection biased; bf16, seeded random
+           weights, frames drawn once from a seeded ``torch.Generator``)
+           on the prepared ``pallas`` datapath, then on ``bit_exact``,
+           through the paged engine: a 30-second window of 1,500 frames
+           per request, 4 requests of the 4-token decoder prompt
+           (start-of-transcript, language, task, no-timestamps), 32 new
+           tokens each, greedy, max batch 4, max_len 1,504.  Every prefill
+           launches K1 (then K3) 385 times (the frame projection, 24 x 6
+           encoder projections, 24 x 2 cross-KV, 24 x 8 decoder
+           projections), every decode step 192; every request's A/D ops
+           equal the closed form (per row on ``pallas``: 2,367,488
+           conversions of a frame through the frame projection and the
+           encoder and 393,216 for its cross-KV, 2,752,512 of a decoder
+           row; 7 ops each, 64 bit-line conversions each on
+           ``bit_exact``); every logit finite; each request holds a page
+           for every 16 of its 1,500 cross-KV rows.  Readings: tokens/s,
+           mean TTFT, the memory allocated after compile, and a
+           ``torch.profiler`` reading of one batch-4 decode step of the
+           engine (the paged ``assemble`` of self- and cross-KV, the
+           forward, the write-back) and one 1,500-frame prefill on each
+           datapath (K1/K3, attention, cross-attention, the encoder,
+           device-idle share).  A full-width prefill on ``fake_quant``
+           against ``pallas`` at the phase-4 bar (the per-depth gate on
+           the decoder stream), and on ``bit_exact`` through K3's plain
+           version at the phase-7 bar.
 
-Kernel launch counts are reset just before each main path (phase 3 and
-phase 11 for K1, phase 7 and phase 11 for K3, the calibration of phase 8
+Kernel launch counts are reset just before each main path (phases 3, 11
+and 12 for K1, phases 7, 11 and 12 for K3, the calibration of phase 8
 for both of K2's entries) and read just after; launches that compare a
 kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -205,6 +240,36 @@ RWKV_ROW = 67_108_864              # conversions of a row through all 257
 RWKV_PREFILL_ROW = 65_011_712      # ... of a prefill row (no lm_head)
 MIXED_NEW = 6                      # the mixed-archs trace's new tokens
 MIXED_BATCH = 2
+WHISPER_ARCH = "whisper-medium"
+WHISPER_LAYERS = 24                # encoder layers, and decoder layers
+# (K, N) of every attention projection and the frame projection, w_up,
+# and w_down
+WHISPER_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
+# phase 12's trace: a 30-second window of 1,500 encoder frames, 4 requests
+# of a 4-token decoder prompt (start-of-transcript, language, task,
+# no-timestamps: 50258, 50259, 50359, 50363), 32 new tokens each, greedy,
+# max batch 4, max_len 1,504 (the least multiple of 16 rows that holds the
+# frames)
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+WHISPER_NEW = 32
+WHISPER_BATCH = 4
+WHISPER_MAX_LEN = 1504
+# the rows phase 12 gives K1 and K3 at whisper's shapes, where both are
+# timed: the batch-4 decode step, the prompt's bucket of 8 decoder rows
+# and the 1,500 frame rows (frame projection, encoder, cross-KV)
+WHISPER_MS = (4, 8, WHISPER_FRAMES)
+WHISPER_PATH = sorted((m, k, n) for m in WHISPER_MS for k, n in WHISPER_KN)
+# K1 (K3) launches of one forward: the frame projection, 24 x 6 encoder
+# projections, 24 x 2 cross-KV and 24 x 8 decoder projections at prefill;
+# the decoder's alone at decode
+WHISPER_PREFILL_LAUNCHES = 385
+WHISPER_DECODE_LAUNCHES = 192
+# conversions per row on pallas: a frame row through the frame projection
+# and the encoder, the same row's cross-KV, a decoder row
+WHISPER_FRAME_ROW = 2_367_488
+WHISPER_XKV_ROW = 393_216
+WHISPER_DEC_ROW = 2_752_512
 WKV_TOL = 1e-4                     # phase 11: scan against recurrence
 PARAM_GRID = [dict(n_r1=4, n_r2=4, m=3, bias=0.0),    # tests/test_kernels.py
               dict(n_r1=2, n_r2=6, m=1, bias=0.0),
@@ -372,6 +437,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     default = dict(n_r1=6, n_r2=6, m=4)
     cases = [((m, k, n), default) for m in K1_MS for k, n in PROJ_KN]
     cases += [((m, k, n), default) for m in RWKV_MS for k, n in RWKV_KN]
+    cases += [((m, k, n), default) for m, k, n in WHISPER_PATH]
     cases += [((3, 300, 130), default), (TMA_RAGGED, default)]
     cases += [(shape, r) for shape in ((64, 3072, 1024), (3, 300, 130))
               for r in R1_REGS]
@@ -397,7 +463,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
                         f"{int(ops_r)}")
                 n_exact += 1
     log(f"  exact: {n_exact} integer cases (M in {K1_MS} at llama's four "
-        f"projection shapes, M in {RWKV_MS} at rwkv6's four, 3x300x130 and "
+        f"projection shapes, M in {RWKV_MS} at rwkv6's four, M in "
+        f"{WHISPER_MS} at whisper's three, 3x300x130 and "
         f"{TMA_RAGGED}; bf16 and f32 weights; registers "
         f"given and auto-ranged): y bitwise equal, ops equal")
 
@@ -408,6 +475,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
              for auto in (False, True)]
     cases += [((m, k, n), default, torch.bfloat16, auto)
               for m in RWKV_MS for k, n in RWKV_KN for auto in (False, True)]
+    cases += [((m, k, n), default, torch.bfloat16, auto)
+              for m, k, n in WHISPER_PATH for auto in (False, True)]
     cases += [((64, 3072, 1024), r, torch.bfloat16, True) for r in R1_REGS]
     cases += [(shape, default, wdt, True) for wdt in wdtypes
               for shape in ((3, 300, 130), TMA_RAGGED)]
@@ -462,8 +531,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
         if not ok:
             raise AssertionError("K1 outside the float bar:" + line)
         if ((k, n) in PROJ_KN and m in K1_TIMED_MS or (m, k, n) in
-                RWKV_PATH) and auto and wdt == torch.bfloat16 and \
-                rk is default:
+                RWKV_PATH or (m, k, n) in WHISPER_PATH) and auto and \
+                wdt == torch.bfloat16 and rk is default:
             kern = lambda: trq_group_mvm_cuda(a, w, s, **kw)  # noqa: E731
             ms = device_ms(torch, kern, 20, flush)
             per_call = call_ms(torch, kern, 20, flush)
@@ -540,9 +609,12 @@ def trace_prompts(cfg):
 
 def warm(rt):
     """Warm the libraries (cuBLAS handles, the kernels' modules) off the
-    record."""
+    record; an encoder-decoder's prefill gets 8 zero frames."""
     import numpy as np
-    (_, cache), _ = rt.prefill(np.zeros((1, 16), np.int32), max_len=256)
+    extra = {"embeds": np.zeros((1, 8, rt.cfg.d_model), np.float32)} \
+        if rt.cfg.encoder_layers else None
+    (_, cache), _ = rt.prefill(np.zeros((1, 16), np.int32), extra,
+                               max_len=256)
     rt.decode(np.zeros((1, 1), np.int32), cache)
 
 
@@ -633,18 +705,24 @@ def labelled_spans(torch):
     can attribute device time to them (the package itself carries no
     spans).  A function the package does not have (the pre-fit after it
     was folded into K1) is left out."""
-    from repro_torch.models import attention, layers, rwkv6
+    from repro_torch.models import attention, encdec, layers, rwkv6
     from repro_torch.pim import plan
+    from repro_torch.serve import kvcache
     targets = [(layers, "pim_linear", "projections"),
                (plan, "auto_range_fit_grouped", "pre-fit"),
                (attention, "full_attention", "attention"),
                (attention, "chunked_attention", "attention"),
                (attention, "decode_attention", "attention"),
                (attention, "_scatter_time", "attention"),
+               (encdec, "apply_cross_attention", "cross-attention"),
+               (encdec.EncDec, "encode", "encoder"),
+               (kvcache.PagedKVCache, "assemble", "assemble"),
+               (kvcache.PagedKVCache, "write_blocks", "write-back"),
                (rwkv6, "wkv_scan", "wkv"),
                (rwkv6, "wkv_step", "wkv"),
                (rwkv6, "head_norm", "norm"),
-               (layers, "rmsnorm", "norm")]
+               (layers, "rmsnorm", "norm"),
+               (layers, "layernorm", "norm")]
     saved = []
 
     def wrap(fn, label):
@@ -694,7 +772,8 @@ def profile_forward(torch, fn) -> dict:
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
-    labels = ("projections", "pre-fit", "attention", "wkv", "norm")
+    labels = ("projections", "pre-fit", "attention", "wkv", "norm",
+              "cross-attention", "encoder", "assemble", "write-back")
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and e.name not in labels             # the spans' device mirrors
            and not getattr(e, "is_user_annotation", False)]
@@ -735,27 +814,33 @@ def profile_forwards(torch, rt, prompt, batch: int = TRACE_BATCH,
     import numpy as np
     dec_cache = rt.init_cache(batch, max_len)
     dec_toks = np.zeros((batch, 1), np.int32)
-    out = {}
-    for key, fn in (("decode_step", lambda: rt.decode(dec_toks, dec_cache)),
-                    (f"prefill{len(prompt)}", lambda: rt.prefill(
-                        prompt[None], max_len=max_len))):
-        p = out[key] = profile_forward(torch, fn)
-        if not p["measured"]:
-            log(f"  profile of one {key}: device time not measured (the "
-                f"profiler saw no CUDA activity); host {p['wall_ms']:.1f} "
-                f"ms")
-            continue
-        log(f"  profile of one {key}: host {p['wall_ms']:.1f} ms, device "
-            f"busy {p['device_busy_ms']:.2f} ms (idle share "
-            f"{p['device_idle_share']:.3f}); K1 {p['k1_ms']:.2f} ms in "
-            f"{p['k1_kernels']} kernels, K3 {p['k3_ms']:.2f} ms in "
-            f"{p['k3_kernels']} kernels, projections "
-            f"{p['projections_ms']:.2f} ms, pre-fit {p['pre-fit_ms']:.2f} "
-            f"ms, attention {p['attention_ms']:.2f} ms, wkv "
-            f"{p['wkv_ms']:.2f} ms, norms {p['norm_ms']:.2f} ms")
-        for t in p["top_kernels"]:
-            log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
-    return out
+    return {key: profile_one(torch, key, fn) for key, fn in (
+        ("decode_step", lambda: rt.decode(dec_toks, dec_cache)),
+        (f"prefill{len(prompt)}", lambda: rt.prefill(prompt[None],
+                                                     max_len=max_len)))}
+
+
+def profile_one(torch, key: str, fn) -> dict:
+    """:func:`profile_forward` of ``fn``, logged as ``key``."""
+    p = profile_forward(torch, fn)
+    if not p["measured"]:
+        log(f"  profile of one {key}: device time not measured (the "
+            f"profiler saw no CUDA activity); host {p['wall_ms']:.1f} ms")
+        return p
+    log(f"  profile of one {key}: host {p['wall_ms']:.1f} ms, device "
+        f"busy {p['device_busy_ms']:.2f} ms (idle share "
+        f"{p['device_idle_share']:.3f}); K1 {p['k1_ms']:.2f} ms in "
+        f"{p['k1_kernels']} kernels, K3 {p['k3_ms']:.2f} ms in "
+        f"{p['k3_kernels']} kernels, projections "
+        f"{p['projections_ms']:.2f} ms, pre-fit {p['pre-fit_ms']:.2f} "
+        f"ms, attention {p['attention_ms']:.2f} ms, wkv "
+        f"{p['wkv_ms']:.2f} ms, norms {p['norm_ms']:.2f} ms"
+        + "".join(f", {k} {p[k + '_ms']:.2f} ms" for k in (
+            "cross-attention", "encoder", "assemble", "write-back")
+            if p[k + "_ms"]))
+    for t in p["top_kernels"]:
+        log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
+    return p
 
 
 def rel_l2(x, y) -> float:
@@ -816,7 +901,8 @@ def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     return serve
 
 
-def fake_quant_check(torch, rt, prompt, max_len: int) -> dict:
+def fake_quant_check(torch, rt, prompt, max_len: int,
+                     extra=None) -> dict:
     """One full-width prefill of ``prompt`` on ``pallas`` (``rt``) against
     ``fake_quant``, the plain tensor version of the same math: finite
     logits of the vocabulary's width, equal A/D ops, and a relative L2
@@ -827,21 +913,24 @@ def fake_quant_check(torch, rt, prompt, max_len: int) -> dict:
     with its partial sums accumulated in f64 (another rounding of the same
     math).  The residual stream after layer 0 and a few later depths is
     held to the same bar wherever its control reads at most
-    ``DEPTH_CTRL_MAX``."""
+    ``DEPTH_CTRL_MAX`` (an encoder-decoder's decoder stream, which carries
+    the encoder's flips through cross-attention).  ``extra`` goes to every
+    prefill (an encoder-decoder's frames)."""
     toks = prompt[None].astype("int32")
     # the residual stream after a few depths, for each of the three runs
     # (pallas, fake_quant, control): where the divergence grows
-    n = len(rt.model.layers)
+    stack = rt.model.dec if rt.cfg.encoder_layers else rt.model.layers
+    n = len(stack)
     seen: dict = {}
-    hooks = [rt.model.layers[d].register_forward_hook(
+    hooks = [stack[d].register_forward_hook(
         lambda mod, args, out, d=d: seen.setdefault(d, []).append(
             out[0].float())) for d in sorted({0, n // 4, n // 2, n - 1})]
     try:
-        (l_p, _), rep_p = rt.prefill(toks, max_len=max_len)
+        (l_p, _), rep_p = rt.prefill(toks, extra, max_len=max_len)
         rt_fq = rt.with_overrides(backend="fake_quant")
-        (l_f, _), rep_f = rt_fq.prefill(toks, max_len=max_len)
+        (l_f, _), rep_f = rt_fq.prefill(toks, extra, max_len=max_len)
         with f64_partial_sums(torch):
-            (l_c, _), rep_c = rt_fq.prefill(toks, max_len=max_len)
+            (l_c, _), rep_c = rt_fq.prefill(toks, extra, max_len=max_len)
     finally:
         for h in hooks:
             h.remove()
@@ -1237,6 +1326,7 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     bodies: dict = {}
     cases = [(m, k, n, 8) for m in K3_MS for k, n in PROJ_KN]
     cases += [(m, k, n, 8) for m in RWKV_MS for k, n in RWKV_KN]
+    cases += [(m, k, n, 8) for m, k, n in WHISPER_PATH]
     cases += [(3, 300, 130, 8), K3_NARROW]
     for (m, k, n, bits) in cases:
         a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev, bits)
@@ -1279,9 +1369,9 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                     f"element {float(bar.flatten()[err.argmax()]):.3e})")
             if not ok:
                 raise AssertionError("K3 outside its bar:" + line)
-            if name == "default" and bits == 8 and ((k, n) in PROJ_KN and
-                                                    m in K3_TIMED_MS or
-                                                    (m, k, n) in RWKV_PATH):
+            if name == "default" and bits == 8 and (
+                    (k, n) in PROJ_KN and m in K3_TIMED_MS or
+                    (m, k, n) in RWKV_PATH or (m, k, n) in WHISPER_PATH):
                 kw_main = dict(kw, per_output=False)
                 kern = lambda: k3.xbar_mvm_cuda(  # noqa: E731
                     a_mask, w_mask, s, **kw_main)
@@ -1318,16 +1408,19 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
 @contextlib.contextmanager
 def plain_kernels():
     """Route K2 and K3 to their plain versions on the card (the package
-    dispatches by device and has no such switch)."""
+    dispatches by device and has no such switch); K3's a column block at a
+    time (:func:`plain_k3`: the same bits, within ``PLAIN_BYTES`` of
+    bit-line sums, which 1,500 frame rows would pass 6x at once)."""
+    import torch
     from repro_torch.kernels.trq_quant import ops as k2_ops
     from repro_torch.kernels.trq_quant.ref import trq_quant_ref, \
         trq_score_ref
     from repro_torch.kernels.xbar_mvm import ops as k3_ops
-    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
     saved = k2_ops.trq_quant_cuda, k2_ops.trq_score_cuda, \
         k3_ops.xbar_mvm_cuda
     k2_ops.trq_quant_cuda, k2_ops.trq_score_cuda, k3_ops.xbar_mvm_cuda = \
-        trq_quant_ref, trq_score_ref, xbar_mvm_ref
+        trq_quant_ref, trq_score_ref, \
+        lambda a, w, s, **kw: plain_k3(torch, a, w, s, **kw)
     try:
         yield
     finally:
@@ -1382,20 +1475,22 @@ def bit_exact_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     return out
 
 
-def plain_k3_check(torch, rt, prompt, max_len: int) -> dict:
-    """One full-width prefill of ``prompt`` on ``bit_exact`` (``rt``)
-    through K3 and through its plain version: finite logits, relative L2
-    within ``BIT_EXACT_REL_BAR``, the same argmax, equal A/D ops."""
+def plain_k3_check(torch, rt, prompt, max_len: int, extra=None) -> dict:
+    """One full-width prefill of ``prompt`` (and ``extra``) on
+    ``bit_exact`` (``rt``) through K3 and through its plain version:
+    finite logits, relative L2 within ``BIT_EXACT_REL_BAR``, the same
+    argmax, equal A/D ops."""
     toks = prompt[None].astype("int32")
-    (l_k, _), rep_k = rt.prefill(toks, max_len=max_len)
+    (l_k, _), rep_k = rt.prefill(toks, extra, max_len=max_len)
     with plain_kernels():
         t1 = time.perf_counter()
-        (l_p, _), rep_p = rt.prefill(toks, max_len=max_len)
+        (l_p, _), rep_p = rt.prefill(toks, extra, max_len=max_len)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t1
     rel = rel_l2(l_k, l_p)
     same_top = bool((l_k.argmax(-1) == l_p.argmax(-1)).all())
-    log(f"  {len(prompt)}-token prefill, K3 vs its plain version "
+    frames = f" with {extra['embeds'].shape[1]} frames" if extra else ""
+    log(f"  {len(prompt)}-token prefill{frames}, K3 vs its plain version "
         f"({plain_s:.1f} s): "
         f"logits relative L2 {rel:.3e} (bar {BIT_EXACT_REL_BAR:.0e}), "
         f"bitwise {torch.equal(l_k, l_p)}, same argmax {same_top}, ad_ops "
@@ -1645,6 +1740,25 @@ def serve_bench_phase(torch, cfg, qs, device: str = "cuda") -> dict:
         raise AssertionError("Runtime.save did not round-trip the "
                              "calibrated QuantState")
     out["save_roundtrip_rules"] = len(qs)
+
+    # the full mixed-archs scenario on pallas: llama3.2-3b, rwkv6-7b and
+    # whisper-medium (8 zero frames a prompt) at full width, one at a time
+    built = sb.build(sb.ARCH, "pallas", device)
+    mixed = sb.mixed_archs(built, quick=False)
+    del built
+    torch.cuda.empty_cache()
+    for arch, r in mixed["archs"].items():
+        log(f"  mixed_archs {arch}: {r['requests']} requests, "
+            f"{r['decode_tokens']} tokens, {r['tokens_per_s']:.2f} tok/s, "
+            f"mean ttft {1e3 * r['mean_ttft_s']:.1f} ms, "
+            f"{r['mean_ad_ops_per_request']:.0f} A/D ops per request")
+    if sorted(mixed["archs"]) != sorted([sb.ARCH, sb.RECURRENT_ARCH,
+                                         sb.ENCDEC_ARCH]) or \
+            mixed["pending_archs"] or any(
+                r["decode_tokens"] != 3 * MIXED_NEW
+                for r in mixed["archs"].values()):
+        raise AssertionError("mixed_archs did not serve all three archs")
+    out["mixed_archs"] = mixed
     return out
 
 
@@ -2009,6 +2123,228 @@ def rwkv6_phase(torch, rec1: dict, rec3: dict, cfg,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: full-width whisper-medium
+# ---------------------------------------------------------------------------
+
+def whisper_conversions(cfg):
+    """(conversions of a frame row through the frame projection and the
+    encoder, of the same row's cross-KV, of a decoder row) on ``pallas``:
+    N x ceil(K/128) per projection; an encoder layer's count is held to
+    :func:`conversions_per_token` less the ``w_gate`` it lacks."""
+    d, f = cfg.d_model, cfg.d_ff
+    assert cfg.n_heads * cfg.hd == cfg.n_kv_heads * cfg.hd == d
+    proj = d * -(-d // 128)                    # any d -> d projection
+    mlp = f * -(-d // 128) + d * -(-f // 128)  # w_up, w_down
+    enc_layer = 4 * proj + mlp
+    if enc_layer != conversions_per_token(cfg) - f * -(-d // 128):
+        raise AssertionError("whisper's closed form disagrees with "
+                             "conversions_per_token")
+    return (proj + cfg.encoder_layers * enc_layer,
+            cfg.n_layers * 2 * proj,
+            cfg.n_layers * (6 * proj + mlp))
+
+
+def whisper_config():
+    from repro_torch.models.registry import get_config
+    cfg = get_config(WHISPER_ARCH).replace(param_dtype="bfloat16",
+                                           pim_backend="pallas",
+                                           remat="none")
+    assert (cfg.n_layers, cfg.encoder_layers, cfg.d_model, cfg.d_ff,
+            cfg.vocab_size, cfg.tie_embeddings) == (
+        WHISPER_LAYERS, WHISPER_LAYERS, 1024, 4096, 51865, True)
+    assert whisper_conversions(cfg) == (WHISPER_FRAME_ROW, WHISPER_XKV_ROW,
+                                        WHISPER_DEC_ROW)
+    return cfg
+
+
+def frame_feed(frames):
+    """The engine's ``extra_inputs``: each prefill gets the next request's
+    frames (admission order), a decode step nothing."""
+    fed = [0]
+
+    def extra_inputs(b: int, s: int) -> dict:
+        if s == 1:
+            return {}
+        i, fed[0] = fed[0], fed[0] + 1
+        return {"embeds": frames[i % len(frames)][None]}
+    return extra_inputs
+
+
+@contextlib.contextmanager
+def launches_per_call(torch, rt, counter):
+    """Record ``counter.LAUNCHES`` spent by each ``rt.prefill`` and
+    ``rt.decode`` call, and whether its logits are finite."""
+    calls = {"prefill": [], "decode": [], "finite": True}
+
+    def wrap(kind, fn):
+        def inner(*a, **kw):
+            before = counter.LAUNCHES
+            (logits, cache), rep = fn(*a, **kw)
+            calls[kind].append(counter.LAUNCHES - before)
+            calls["finite"] &= bool(torch.isfinite(logits).all())
+            return (logits, cache), rep
+        return inner
+    rt.prefill = wrap("prefill", rt.prefill)
+    rt.decode = wrap("decode", rt.decode)
+    try:
+        yield calls
+    finally:
+        del rt.prefill, rt.decode
+
+
+def whisper_trace(torch, rt, frames, counter, kname: str,
+                  slices: int) -> dict:
+    """Phase 12's trace (``WHISPER_*``) through the paged engine, with
+    ``counter.LAUNCHES`` set to 0 just before and read just after.  Fails
+    unless every prefill launched the kernel 385 times and every decode
+    step 192, every request's A/D ops equal the closed form (``slices``
+    bit-line conversions per group and output, 7 ops each), every logit
+    was finite, every request got 32 in-vocab tokens and each held a page
+    for every 16 of its 1,500 cross-KV rows."""
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    cfg = rt.cfg
+    eng = ServeEngine(rt, max_batch=WHISPER_BATCH, max_len=WHISPER_MAX_LEN,
+                      block_size=16, extra_inputs=frame_feed(frames))
+    with launches_per_call(torch, rt, counter) as calls:
+        counter.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(WHISPER_BATCH):
+            eng.submit(np.array(WHISPER_PROMPT), max_new_tokens=WHISPER_NEW)
+        done = sorted(eng.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counter.LAUNCHES
+    st = eng.stats()
+    per_conv = 7 * slices
+    frame_row, xkv_row, dec_row = whisper_conversions(cfg)
+    bkt = bucket(len(WHISPER_PROMPT), WHISPER_MAX_LEN)
+    pre = per_conv * (WHISPER_FRAMES * (frame_row + xkv_row)
+                      + bkt * dec_row)
+    ok = len(done) == WHISPER_BATCH
+    per_req = []
+    for r, share in zip(done, decode_shares(WHISPER_BATCH, WHISPER_BATCH,
+                                            WHISPER_NEW)):
+        want = pre + per_conv * dec_row * WHISPER_BATCH * share
+        ok = ok and r.prefill_ad_ops == pre and r.ad_ops == want and \
+            len(r.generated) == WHISPER_NEW and all(
+                0 <= t < cfg.vocab_size for t in r.generated)
+        per_req.append(r.ad_ops)
+        log(f"  req {r.uid}: ttft {1e3 * (r.first_token_t - r.submit_t):.1f}"
+            f" ms, ad_ops {r.ad_ops:.0f} (closed form {want:.0f}; prefill "
+            f"{r.prefill_ad_ops:.0f}, closed form {pre}), tokens "
+            f"{list(r.generated)}")
+    pages = -(-WHISPER_FRAMES // 16)
+    peak = st["paged"]["peak_pages_in_use"]
+    log(f"  served {st['requests']} requests, {st['decode_tokens']} tokens "
+        f"in {wall:.2f} s: {st['tokens_per_s']:.2f} tok/s, mean ttft "
+        f"{1e3 * st['mean_ttft_s']:.1f} ms, total ad_ops "
+        f"{st['total_ad_ops']:.0f}; {kname} launches {launches}: "
+        f"{calls['prefill']} by the prefills, "
+        f"{sorted(set(calls['decode']))} by each of "
+        f"{len(calls['decode'])} decode steps; peak pages {peak} "
+        f"({WHISPER_BATCH} x {pages} expected); logits finite "
+        f"{calls['finite']}")
+    if calls["prefill"] != [WHISPER_PREFILL_LAUNCHES] * WHISPER_BATCH or \
+            set(calls["decode"]) != {WHISPER_DECODE_LAUNCHES} or \
+            launches != sum(calls["prefill"]) + sum(calls["decode"]):
+        raise AssertionError(f"whisper: {kname} launches per forward off "
+                             f"{WHISPER_PREFILL_LAUNCHES} (prefill) / "
+                             f"{WHISPER_DECODE_LAUNCHES} (decode)")
+    if not ok or not calls["finite"] or peak != WHISPER_BATCH * pages:
+        raise AssertionError("whisper: A/D ops per request off the closed "
+                             "form, tokens missing, logits not finite or "
+                             "cross-KV rows without pages")
+    return dict(tokens_per_s=st["tokens_per_s"],
+                mean_ttft_ms=1e3 * st["mean_ttft_s"],
+                total_ad_ops=st["total_ad_ops"], ad_ops_per_request=per_req,
+                forwards=len(calls["prefill"]) + len(calls["decode"]),
+                launches=launches, wall_s=wall, peak_pages=peak,
+                tokens=[list(r.generated) for r in done])
+
+
+def whisper_forwards(torch, rt, frames, measure) -> dict:
+    """``measure(label, fn)`` over one batch-4 decode step of the paged
+    engine (the ``assemble`` of every slot's self- and cross-KV pages, the
+    forward, the write-back, sampling) and one prefill of the prompt with
+    1,500 frames."""
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(rt, max_batch=WHISPER_BATCH, max_len=WHISPER_MAX_LEN,
+                      block_size=16, extra_inputs=frame_feed(frames))
+    for _ in range(WHISPER_BATCH):
+        eng.submit(np.array(WHISPER_PROMPT), max_new_tokens=WHISPER_NEW)
+    eng._admit()
+    prompt = np.array([WHISPER_PROMPT], np.int32)
+    extra = {"embeds": frames[:1]}
+    return {"decode_step": measure("decode_step", eng.step),
+            f"prefill{WHISPER_FRAMES}": measure(
+                f"prefill{WHISPER_FRAMES}", lambda: rt.prefill(
+                    prompt, extra, max_len=WHISPER_MAX_LEN))}
+
+
+def whisper_phase(torch, rec1: dict, rec3: dict, cfg,
+                  device: str = "cuda") -> dict:
+    """whisper-medium at ``cfg`` on ``pallas`` through K1, then on
+    ``bit_exact`` through K3 (see the module docstring, phase 12)."""
+    import numpy as np
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+
+    torch.cuda.reset_peak_memory_stats()
+    rt, gib = compile_pallas(torch, cfg, device)
+    n_params = sum(t.numel() for t in rt.model.state_dict().values())
+    log(f"  {n_params / 1e9:.3f} B parameters")
+    if len(rt.plan) != WHISPER_PREFILL_LAUNCHES:
+        raise AssertionError(f"whisper: {len(rt.plan)} layer plans, not "
+                             f"{WHISPER_PREFILL_LAUNCHES}")
+    gen = torch.Generator(device=device).manual_seed(12)
+    frames = torch.randn(WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model,
+                         generator=gen, device=device)
+    prompt = np.asarray(WHISPER_PROMPT)
+    out = dict(params=n_params, gib_after_compile=gib)
+    runs = {}
+    for backend, counter, kname, slices in (("pallas", k1, "K1", 1),
+                                            ("bit_exact", k3, "K3",
+                                             SLICES)):
+        if backend == "bit_exact":
+            t0 = time.perf_counter()
+            rt = rt.with_overrides(backend="bit_exact")
+            torch.cuda.synchronize()
+            log(f"  programmed {len(rt.plan)} bit_exact layer plans in "
+                f"{time.perf_counter() - t0:.1f} s; "
+                f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+                f"allocated")
+            warm(rt)
+        run = runs[backend] = whisper_trace(torch, rt, frames, counter,
+                                            kname, slices)
+        times = whisper_forwards(torch, rt, frames,
+                                 lambda k, fn: wall_ms(torch, fn))
+        run.update({f"{k}_ms": v for k, v in times.items()})
+        log(f"  {backend}: one decode step of the engine (batch "
+            f"{WHISPER_BATCH}) {run['decode_step_ms']:.1f} ms, one "
+            f"{WHISPER_FRAMES}-frame prefill "
+            f"{run[f'prefill{WHISPER_FRAMES}_ms']:.1f} ms")
+        run["profile"] = whisper_forwards(torch, rt, frames,
+                                          lambda k, fn: profile_one(
+                                              torch, k, fn))
+        extra = {"embeds": frames[:1]}
+        if backend == "pallas":
+            log("  a full-width prefill, fake_quant against pallas (the "
+                "phase-4 bar, on the decoder stream)")
+            out.update(fake_quant_check(torch, rt, prompt, WHISPER_MAX_LEN,
+                                        extra))
+        else:
+            run.update(plain_k3_check(torch, rt, prompt, WHISPER_MAX_LEN,
+                                      extra))
+    for rec, backend in ((rec1, "pallas"), (rec3, "bit_exact")):
+        rec["launches_by_path"][WHISPER_ARCH] = runs[backend]["launches"]
+    out.update(runs)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
 def pallas_config():
     from repro_torch.models.registry import get_config
     cfg = get_config(ARCH).replace(param_dtype="bfloat16",
@@ -2092,7 +2428,7 @@ def main(argv) -> int:
     qs, calib = calibrate_phase(torch, rec2, cfg_be)
     torch.cuda.empty_cache()
     log("phase 9: the serve bench on full-width llama3.2-3b, pallas and "
-        "bit_exact")
+        "bit_exact; mixed_archs with rwkv6-7b and whisper-medium")
     bench = serve_bench_phase(torch, cfg, qs)
     torch.cuda.empty_cache()
     log("phase 10: the noise seam")
@@ -2105,6 +2441,14 @@ def main(argv) -> int:
     t11 = time.perf_counter()
     rwkv = rwkv6_phase(torch, rec, rec3, rwkv_config())
     rwkv["phase_s"] = time.perf_counter() - t11
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12: serve full-width {WHISPER_ARCH} on pallas and "
+        f"bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"still allocated)")
+    t12 = time.perf_counter()
+    whisper = whisper_phase(torch, rec, rec3, whisper_config())
+    whisper["phase_s"] = time.perf_counter() - t12
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -2128,6 +2472,7 @@ def main(argv) -> int:
     log(json.dumps({"serve_bench": bench}))
     log(json.dumps({"noise": noise}))
     log(json.dumps({"rwkv6": rwkv}))
+    log(json.dumps({"whisper": whisper}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())

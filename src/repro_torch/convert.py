@@ -3,9 +3,10 @@
 ``from_jax(params_np, cfg)`` takes the JAX package's parameter tree as
 nested dicts of numpy arrays (the caller does ``jax.tree.map(np.asarray,
 params)``), with the period-stacked leaves of ``params['periods']``, and
-returns the state dict the port's ``LM`` loads: period ``p``, layer ``i``
-of the period becomes ``layers.{p * period + i}``.  Layouts are shared
-(``(K, N)`` weights), so every leaf converts as it is.
+returns the state dict the port's model loads: period ``p``, layer ``i``
+of the period becomes ``layers.{p * period + i}``; an encoder-decoder's
+``enc``/``dec`` stacks (layer axis 0) become ``enc.{i}``/``dec.{i}``.
+Layouts are shared (``(K, N)`` weights), so every leaf converts as it is.
 """
 from __future__ import annotations
 
@@ -31,7 +32,13 @@ def _tensor(a) -> torch.Tensor:
 
 def from_jax(params_np: dict, cfg) -> dict:
     state = {}
+    stacks = ("enc", "dec") if cfg.encoder_layers > 0 else ()
     for key, val in params_np.items():
+        if key in stacks:
+            for path, leaf in _flatten(val):
+                for i in range(leaf.shape[0]):
+                    state[f"{key}.{i}.{path}"] = _tensor(leaf[i])
+            continue
         if key != "periods":
             for path, leaf in _flatten(val, key):
                 state[path] = _tensor(leaf)

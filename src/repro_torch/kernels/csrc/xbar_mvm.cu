@@ -69,8 +69,9 @@
 // * Loads in flight: the producer warp keeps a ring of 4 stages of the
 //   weight tile (k_w planes of 32 columns x 16 bytes, one 1-D bulk copy
 //   each) in flight on mbarriers; each consumer warp releases a stage once
-//   it holds its B fragments.  The activation words are tiny and come from
-//   L2, loaded one group ahead.
+//   it holds its B fragments, after a proxy fence (the refill is an
+//   async-proxy write into the memory its lanes just read).  The
+//   activation words are tiny and come from L2, loaded one group ahead.
 // Against the bounds (PERF.md has the times): at decode the weight stream
 // keeps up (a flush that leaves L2 clean gives the same time) and the
 // conversions are the limit; at prefill the kernel stays well above the
@@ -146,6 +147,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         " selp.u32 %0, 1, 0, p;\n}"
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
+}
+// Orders this thread's generic-proxy accesses to shared memory before
+// later async-proxy ones (the producer's next bulk copy into the stage).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           int bytes, uint64_t* bar) {
@@ -321,6 +327,11 @@ xbar_mvm_tc(const uint32_t* __restrict__ a_mask,
                     ? *reinterpret_cast<const uint32_t*>(wt + c * kPlane)
                     : 0u;
       }
+      // the refill of this stage is an async-proxy write: without a proxy
+      // fence between the reads above and the release, it can land before
+      // a lane's read (rarely, one weight word of one block:
+      // tools/k3_stage_race.py reproduces it beside other work)
+      fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + st);
       int d[T][4][4];

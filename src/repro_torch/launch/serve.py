@@ -12,7 +12,9 @@ the bit-exact sliced crossbar, one A/D conversion per bit-line, through the
 ideal ``CrossbarModel``, so it runs the same kernel.  ``--quant-state``
 installs Algorithm-1 per-layer registers; without it every layer takes the
 model-wide default (which ``pallas`` auto-ranges).  ``--energy-report``
-prints the per-request A/D-conversion and energy table.
+prints the per-request A/D-conversion and energy table.  An
+encoder-decoder (``--arch whisper-medium``) gets 8 zero frames per prompt
+as its encoder input, as the reference launcher feeds it.
 """
 from __future__ import annotations
 
@@ -27,6 +29,19 @@ from ..models.registry import ARCHS, get_config, init
 from ..pim.backend import list_backends
 from ..serve.engine import ServeEngine
 from ..telemetry.serve_report import format_energy_report, serve_report
+
+
+def frames_stub(cfg, n_frames: int = 8):
+    """The engine's ``extra_inputs`` for ``cfg``: ``n_frames`` zero frame
+    embeddings at every prefill of an encoder-decoder (the stub frontend),
+    nothing otherwise."""
+    import torch
+
+    def extra_inputs(b: int, s: int) -> dict:
+        if cfg.encoder_layers > 0 and s > 1:
+            return {"embeds": torch.zeros((b, n_frames, cfg.d_model))}
+        return {}
+    return extra_inputs
 
 
 def main(argv=None):
@@ -85,6 +100,7 @@ def main(argv=None):
         rt = rt.with_overrides(backend=args.backend, plan=args.plan)
         print(f"backend override: serving on {rt.backend!r}")
     engine = ServeEngine(rt, max_batch=args.max_batch, max_len=args.max_len,
+                         extra_inputs=frames_stub(cfg),
                          paged=args.paged, block_size=args.block_size,
                          prefix_reuse=args.prefix_reuse,
                          num_blocks=args.num_blocks, rng_seed=args.seed)

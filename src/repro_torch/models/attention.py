@@ -1,7 +1,7 @@
 """GQA attention: full and chunked (online-softmax) attention for prefill,
-single-step cached decode, and the continued-prefill (prefix reuse) branch
-(port of ``repro.models.attention``; attention is plain tensor code in the
-reference too).
+single-step cached decode, the continued-prefill (prefix reuse) branch, and
+the enc-dec cross-attention (port of ``repro.models.attention``; attention
+is plain tensor code in the reference too).
 
 Layouts are the reference's: q (B, S, KV, G, hd) grouped by KV head, k/v
 and caches (B, S, KV, hd).
@@ -20,12 +20,16 @@ NEG_INF = -1e30
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, prefix: str, dtype, device=None):
+    """wq, wk, wv and wo; ``bias`` defaults to ``cfg.attn_bias``.  The
+    cross-attention of an enc-dec layer is the same module (its wk/wv
+    project the encoder output once, :func:`encoder_kv`)."""
+
+    def __init__(self, cfg: ModelConfig, prefix: str, dtype, device=None,
+                 bias: Optional[bool] = None):
         super().__init__()
-        if cfg.attn_bias:
-            raise NotImplementedError("attention biases are not ported")
         hd = cfg.hd
-        kw = dict(dtype=dtype, device=device)
+        bias = cfg.attn_bias if bias is None else bias
+        kw = dict(dtype=dtype, device=device, bias=bias)
         self.wq = PimLinear(cfg.d_model, cfg.n_heads * hd,
                             name=f"{prefix}/wq", **kw)
         self.wk = PimLinear(cfg.d_model, cfg.n_kv_heads * hd,
@@ -37,9 +41,9 @@ class Attention(nn.Module):
 
     def forward(self, x, ctx: PimContext, positions, *,
                 cache: Optional[dict] = None, cont: bool = False,
-                causal: bool = True):
+                causal: bool = True, rope: bool = True):
         return apply_attention(self, x, ctx, positions, cache=cache,
-                               cont=cont, causal=causal)
+                               cont=cont, causal=causal, rope=rope)
 
 
 def _group_q(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -136,19 +140,21 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
 
 def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
                     causal: bool = True, cache: Optional[dict] = None,
-                    cont: bool = False):
+                    cont: bool = False, rope: bool = True):
     """Returns (out, new_cache).  cache=None -> stateless.  Prefill (s > 1)
     writes k/v at [0, s); decode (s == 1) writes at cache['len'];
     ``cont`` appends the s tokens at cache['len'] and attends over the
-    whole (trimmed) cache buffer."""
+    whole (trimmed) cache buffer.  ``rope=False`` leaves q and k unrotated
+    (``positions`` is then unused)."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     hd = cfg.hd
     q = p.wq(x, ctx).reshape(b, s, cfg.n_heads, hd)
     k = p.wk(x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
     v = p.wv(x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg)
-    k = apply_rope(k, positions, cfg)
+    if rope:
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
     qg = _group_q(q, cfg.n_kv_heads)
     new_cache = None
     ck = min(s, cfg.attn_chunk_k)
@@ -183,3 +189,37 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
 
     o = o.reshape(b, s, cfg.n_heads * hd)
     return p.wo(o, ctx), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def apply_cross_attention(p: Attention, x, enc_kv: dict,
+                          ctx: PimContext) -> torch.Tensor:
+    """x: (B,Sd,D); enc_kv: {'k','v'} (B,Se,KV,hd) precomputed from the
+    encoder.  Chunked when both lengths divide by their chunks and one
+    exceeds it, else full; never causal, never masked: every row of
+    ``enc_kv`` enters the softmax."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = p.wq(x, ctx).reshape(b, s, cfg.n_heads, hd)
+    qg = _group_q(q, cfg.n_kv_heads)
+    se = enc_kv["k"].shape[1]
+    cq, ck = cfg.attn_chunk_q, cfg.attn_chunk_k
+    if s % cq == 0 and se % ck == 0 and (s > cq or se > ck):
+        o = chunked_attention(qg, enc_kv["k"], enc_kv["v"], False, cq, ck)
+    else:
+        o = full_attention(qg, enc_kv["k"], enc_kv["v"], causal=False)
+    return p.wo(o.reshape(b, s, cfg.n_heads * hd), ctx)
+
+
+def encoder_kv(p: Attention, enc_out, ctx: PimContext) -> dict:
+    """The cross-attention keys and values of one decoder layer:
+    {'k','v'} (B,Se,KV,hd)."""
+    cfg = ctx.cfg
+    b, s, _ = enc_out.shape
+    k = p.wk(enc_out, ctx).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = p.wv(enc_out, ctx).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return {"k": k, "v": v}

@@ -1,5 +1,6 @@
-"""Shared layers: PimLinear, RMSNorm, embedding, RoPE, gated-SiLU MLP
-(port of ``repro.models.layers``).
+"""Shared layers: PimLinear, RMSNorm, LayerNorm, embedding, RoPE,
+sinusoidal positions, the gated-SiLU and the GELU MLP (port of
+``repro.models.layers``).
 
 Weights keep the reference's ``(K, N)`` layout (``y = x @ w``) so a JAX
 parameter tree converts leaf for leaf.  The execution context — backend
@@ -132,6 +133,26 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     return (n * scale).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        kw = dict(dtype=torch.float32, device=device)
+        self.scale = nn.Parameter(torch.empty(d, **kw), requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(d, **kw), requires_grad=False)
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        return layernorm(self.scale, self.bias, x, eps)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """In f32 with the population variance, as the reference's."""
+    xf = x.float()
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.var(xf, -1, keepdim=True, correction=0)
+    return (((xf - mu) * torch.rsqrt(var + eps)) * scale + bias).to(x.dtype)
+
+
 class Embed(nn.Module):
     def __init__(self, vocab: int, d: int, dtype=torch.float32, device=None):
         super().__init__()
@@ -165,20 +186,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoid_pos(seq: int, d: int, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """(seq, d) sinusoidal table: sines of every position times the
+    inverse frequencies, then cosines."""
+    return sinusoid_at(torch.arange(seq, dtype=torch.float32,
+                                    device=device), d).to(dtype)
+
+
+def sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoidal embedding at integer ``positions`` (any shape), f32.
+    The frequencies' power is taken in f64 and rounded once to f32: the
+    correctly rounded value, which XLA's f32 ``pow`` gives and torch's
+    misses by an ulp on some exponents (an ulp of 1/10000^(i/d) moves the
+    angle at position 1,499 by about 1e-4)."""
+    expo = torch.arange(0, d, 2, dtype=torch.float32,
+                        device=positions.device) / d
+    inv = 1.0 / (10000.0 ** expo.double()).float()
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 # ---------------------------------------------------------------------------
-# MLP (gated SiLU)
+# MLP (gated SiLU, or GELU whisper-style)
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, prefix: str, dtype, device=None):
+    """``mlp_act="silu"``: the gated-SiLU MLP; ``"gelu"``: up, GELU (tanh
+    approximation, ``jax.nn.gelu``'s default), down.  ``bias`` gives every
+    projection a bias."""
+
+    def __init__(self, cfg: ModelConfig, prefix: str, dtype, device=None,
+                 bias: bool = False):
         super().__init__()
-        if cfg.mlp_act != "silu":
-            raise NotImplementedError(
-                f"mlp_act={cfg.mlp_act!r}: only the gated-SiLU MLP is "
-                f"ported")
-        kw = dict(dtype=dtype, device=device)
-        self.w_gate = PimLinear(cfg.d_model, cfg.d_ff,
-                                name=f"{prefix}/w_gate", **kw)
+        if cfg.mlp_act not in ("silu", "gelu"):
+            raise NotImplementedError(f"mlp_act={cfg.mlp_act!r}")
+        self.act = cfg.mlp_act
+        kw = dict(dtype=dtype, device=device, bias=bias)
+        if self.act == "silu":
+            self.w_gate = PimLinear(cfg.d_model, cfg.d_ff,
+                                    name=f"{prefix}/w_gate", **kw)
         self.w_up = PimLinear(cfg.d_model, cfg.d_ff, name=f"{prefix}/w_up",
                               **kw)
         self.w_down = PimLinear(cfg.d_ff, cfg.d_model,
@@ -186,6 +233,9 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, ctx: PimContext) -> torch.Tensor:
         up = self.w_up(x, ctx)
-        gate = self.w_gate(x, ctx)
-        h = gate * torch.sigmoid(gate) * up
+        if self.act == "silu":
+            gate = self.w_gate(x, ctx)
+            h = gate * torch.sigmoid(gate) * up
+        else:
+            h = torch.nn.functional.gelu(up, approximate="tanh")
         return self.w_down(h, ctx)

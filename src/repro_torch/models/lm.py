@@ -31,6 +31,7 @@ from .rwkv6 import RWKV6TimeMix, dims as rwkv_dims
 
 LAYER_KINDS = (("attn", "mlp"), ("rwkv", "mlp"))
 PAGED_KEYS = ("k", "v")         # cache leaves that scale with max_len
+STATIC_KEYS = ()                # none is written at prefill only
 
 
 def layer_name(cfg: ModelConfig, depth: int) -> str:
@@ -146,6 +147,11 @@ class LM(nn.Module):
             if new_len is not None:
                 new_cache["len"] = new_len
         return logits, new_cache
+
+
+def paged_keys(cfg: ModelConfig) -> tuple:
+    """The cache leaves this model has that scale with ``max_len``."""
+    return PAGED_KEYS if "attn" in mixers(cfg) else ()
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

@@ -1,10 +1,12 @@
 """Architecture registry: ``--arch <id>`` -> config, model and seeded init
-(the ``llama3.2-3b`` and ``rwkv6-7b`` slice of ``repro.models.registry``).
+(the ``llama3.2-3b``, ``rwkv6-7b`` and ``whisper-medium`` slice of
+``repro.models.registry``).
 
 The reference's init draws from ``jax.random``, which PyTorch cannot
 replay; :func:`init` draws from a ``torch.Generator`` with the same
 distributions and scales (``init_linear``: N(0, 1) * d_in**-0.5;
-``init_embed``: N(0, 1) * d_model**-0.5; RMSNorm scales 1, in f32; the
+``init_embed``: N(0, 1) * d_model**-0.5; biases 0; RMSNorm scales 1 and
+LayerNorm scales 1 and biases 0, in f32; the
 rwkv time-mix's leaves as ``repro.models.rwkv6.init_rwkv``), on the
 target device so a full-width model never passes through host memory.
 Parity tests instead load the reference's own weights (``repro_torch.convert``).
@@ -17,10 +19,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .layers import Embed, PimLinear, RMSNorm, pdtype
+from .layers import Embed, LayerNorm, PimLinear, RMSNorm, pdtype
 from .rwkv6 import HeadNormAffine, RWKV6TimeMix
 
-ARCHS = ("llama3.2-3b", "rwkv6-7b")
+ARCHS = ("llama3.2-3b", "rwkv6-7b", "whisper-medium")
 
 
 def _module_name(arch: str) -> str:
@@ -34,9 +36,21 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke() if smoke else mod.CONFIG
 
 
+def model_module(cfg: ModelConfig):
+    """The module that holds ``cfg``'s model class and its cache
+    functions (``init_cache``, ``init_state``, ``paged_keys``,
+    ``STATIC_KEYS``): ``encdec`` for an encoder-decoder, else ``lm``."""
+    from . import encdec, lm
+    return encdec if cfg.encoder_layers > 0 else lm
+
+
 def build_model(cfg: ModelConfig, device="meta"):
-    """An ``LM`` whose tensors are unallocated (``meta``) by default; load
-    a state with ``load_state_dict(state, assign=True)``."""
+    """An ``EncDec`` (``cfg.encoder_layers > 0``) or an ``LM`` whose
+    tensors are unallocated (``meta``) by default; load a state with
+    ``load_state_dict(state, assign=True)``."""
+    if cfg.encoder_layers > 0:
+        from .encdec import EncDec
+        return EncDec(cfg, device=device)
     from .lm import LM
     return LM(cfg, device=device)
 
@@ -63,6 +77,9 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             state[pre + "scale"] = torch.ones(mod.scale.shape[0],
                                               dtype=torch.float32,
                                               device=device)
+        elif isinstance(mod, LayerNorm):
+            state[pre + "scale"] = torch.ones(mod.scale.shape[0], **f32)
+            state[pre + "bias"] = torch.zeros(mod.bias.shape[0], **f32)
         elif isinstance(mod, Embed):
             tok = torch.randn(*mod.tok.shape, generator=gen, device=device)
             state[pre + "tok"] = (tok * cfg.d_model ** -0.5).to(dt)

@@ -22,8 +22,7 @@ from ..core.energy import adc_energy_pj
 from ..core.quant_state import QuantState, save_quant_state
 from ..device import resolve_device
 from ..models.layers import PimContext, pim_linear
-from ..models.lm import LM, init_cache
-from ..models.registry import build_model
+from ..models.registry import build_model, model_module
 from ..pim.backend import get_backend
 from ..pim.noise import (CrossbarModel, active_crossbar_model,
                          crossbar_token, is_noise_aware)
@@ -51,7 +50,7 @@ class Runtime:
     """A compiled execution context (see module docstring).  Construct it
     through :func:`compile`."""
 
-    def __init__(self, cfg: ModelConfig, model: LM, *, backend: str,
+    def __init__(self, cfg: ModelConfig, model, *, backend: str,
                  quant_state: Optional[QuantState], plan: Optional[PimPlan],
                  device: torch.device, plan_enabled: bool = True,
                  crossbar_model: Optional[CrossbarModel] = None):
@@ -85,38 +84,52 @@ class Runtime:
             return x.to(device=self.device, dtype=dtype)
         return torch.tensor(x, dtype=dtype, device=self.device)   # a copy
 
-    def _forward(self, tokens, *, cache=None, mode: str, positions=None):
+    def _forward(self, tokens, *, cache=None, mode: str, positions=None,
+                 extra: Optional[dict] = None):
         ctx = self._ctx()
+        kw = {}
+        if positions is not None:
+            kw["positions"] = self._tensor(positions)
+        if extra:
+            if self.cfg.encoder_layers == 0 or set(extra) != {"embeds"}:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: modality inputs {sorted(extra)} are "
+                    f"not ported (an encoder-decoder takes 'embeds')")
+            kw["embeds"] = self._tensor(extra["embeds"], torch.float32)
         with torch.no_grad():
-            logits, new_cache = self.model(
-                self._tensor(tokens), ctx, cache=cache, mode=mode,
-                positions=None if positions is None
-                else self._tensor(positions))
+            logits, new_cache = self.model(self._tensor(tokens), ctx,
+                                           cache=cache, mode=mode, **kw)
         self.forward_calls += 1
         return logits, new_cache, AdOpsReport(ctx.ops)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return init_cache(self.cfg, batch, max_len, device=self.device)
+        """The model's own zeroed cache (an encoder-decoder's cross-KV is
+        ``max_len`` rows deep, the reference's rule)."""
+        return model_module(self.cfg).init_cache(self.cfg, batch, max_len,
+                                                 device=self.device)
 
     # -- entry points (each returns (out, AdOpsReport)) ----------------------
 
     def apply(self, batch: dict, cache=None, mode: str = "train"):
         """The model forward: ``((logits, cache, aux), AdOpsReport)``;
-        ``batch`` holds ``tokens`` and optionally ``positions``."""
+        ``batch`` holds ``tokens`` and optionally ``positions`` (and, for
+        an encoder-decoder outside decode, the frames ``embeds``)."""
+        extra = {k: v for k, v in batch.items()
+                 if k not in ("tokens", "positions")}
         logits, new_cache, rep = self._forward(
             batch["tokens"], cache=cache, mode=mode,
-            positions=batch.get("positions"))
+            positions=batch.get("positions"), extra=extra)
         return (logits, new_cache, 0.0), rep
 
     def prefill(self, tokens, extra: Optional[dict] = None, *,
                 max_len: int):
         """Prompt forward writing a fresh ``max_len``-deep cache:
-        ``((last_logits, cache), AdOpsReport)``.  ``tokens``: (B, plen)."""
-        if extra:
-            raise NotImplementedError("modality inputs are not ported")
+        ``((last_logits, cache), AdOpsReport)``.  ``tokens``: (B, plen);
+        an encoder-decoder takes its frames as ``extra={"embeds": (B, T,
+        D)}``."""
         cache = self.init_cache(len(tokens), max_len)
         logits, cache, rep = self._forward(tokens, cache=cache,
-                                           mode="prefill")
+                                           mode="prefill", extra=extra)
         return (logits[:, -1], cache), rep
 
     def prefill_cont(self, tokens, positions, cache):
@@ -127,21 +140,29 @@ class Runtime:
         return (logits[:, -1], cache), rep
 
     def decode(self, tokens, cache, extra: Optional[dict] = None):
-        """One token for every sequence in ``cache``."""
+        """One token for every sequence in ``cache``; ``extra`` must be
+        empty (an encoder-decoder reads its cross-KV from the cache)."""
         if extra:
-            raise NotImplementedError("modality inputs are not ported")
+            raise ValueError(f"decode takes no modality inputs; got "
+                             f"{sorted(extra)}")
         logits, cache, rep = self._forward(tokens, cache=cache,
                                            mode="decode")
         return (logits[:, -1], cache), rep
 
     def mvm(self, x: torch.Tensor, layer: str):
         """Run ONE layer's MVM on the Runtime's datapath: ``(y,
-        AdOpsReport)``.  ``layer`` is a QuantState-style name with an
-        absolute depth (``layer_3/attn/wq``)."""
+        AdOpsReport)``.  ``layer`` is a QuantState-style name: with an
+        absolute depth (``layer_3/attn/wq``), or an encoder-decoder's
+        (``enc/attn/wq``, ``dec/xattn/wk``, ``frontend/frame_proj``),
+        whose stacked families resolve to depth 0 as in the reference."""
         parts = layer.split("/")
-        if not parts[0].startswith("layer_"):
+        if parts[0].startswith("layer_"):
+            parts = ["layers", parts[0].split("_", 1)[1], *parts[1:]]
+        elif parts[0] in ("enc", "dec") and self.cfg.encoder_layers > 0:
+            parts = [parts[0], "0", *parts[1:]]
+        elif parts[0] != "frontend" or self.cfg.encoder_layers == 0:
             raise KeyError(f"no layer {layer!r} in the model")
-        path = ".".join(["layers", parts[0].split("_", 1)[1], *parts[1:]])
+        path = ".".join(parts)
         try:
             lin = self.model.get_submodule(path)
         except AttributeError:

@@ -22,6 +22,12 @@ block pool and per-request attribution of each call's ``AdOpsReport``.
   of the fake_quant / pallas datapaths.
 * A model with no paged leaf (rwkv6: its cache is O(1) recurrent state)
   allocates no page and writes no block; prefix reuse is off for it.
+* Modality inputs come from ``extra_inputs(batch, seq)``, a dict of extra
+  batch entries (an encoder-decoder's frames, ``embeds``).  An
+  encoder-decoder's prefill gets pages for ``max(prompt bucket, frames)``
+  rows, so its cross-KV rows have pages; a decode step writes back only
+  the self-KV block it touched (the cross-KV is static).  Prefix reuse is
+  off for it.
 * A prompt is left-padded into its bucket, and a recurrent prefill steps
   its state over the padding tokens too, as the reference's does.
 * Per-request metering: prefill ops go to their request exactly, a decode
@@ -34,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -103,10 +109,12 @@ class ServeEngine:
     """Continuous-batching serving loop around a compiled ``Runtime``."""
 
     def __init__(self, rt, *, max_batch: int = 8, max_len: int = 512,
+                 extra_inputs: Optional[Callable[[int, int], dict]] = None,
                  paged: bool = True, block_size: int = 16,
                  prefix_reuse: bool = True,
                  num_blocks: Optional[int] = None, rng_seed: int = 0):
         self.rt = rt
+        self.extra_inputs = extra_inputs or (lambda b, s: {})
         self.cfg = rt.cfg
         self.plan = rt.plan
         self.quant_state = rt.quant_state
@@ -201,6 +209,10 @@ class ServeEngine:
         padded = self._bucket(plen)
         toks = np.zeros((1, padded), np.int32)
         toks[0, -plen:] = r.prompt[-plen:]   # left-pad into the bucket
+        extra = self.extra_inputs(1, padded)
+        # an encoder-decoder's frames are its cross-KV rows: pages for them
+        rows = max(padded, int(extra["embeds"].shape[1])) \
+            if "embeds" in extra else padded
         bs = self.block_size
 
         reuse_n, keys = 0, []
@@ -224,11 +236,11 @@ class ServeEngine:
             r.reused_tokens = n_reused
         else:
             (last_logits, small), rep = self.rt.prefill(
-                toks, max_len=self.max_len)
+                toks, extra, max_len=self.max_len)
         self._meter(r, rep.ad_ops, prefill=True)
 
         if self.paged and self.kv.specs:
-            n_blk = min(-(-padded // bs), self.kv.pages_per_slot)
+            n_blk = min(-(-rows // bs), self.kv.pages_per_slot)
             new_blks = np.arange(reuse_n, n_blk, dtype=np.int32)
             if len(new_blks):
                 new_pages = self.kv.alloc_pages(len(new_blks))
@@ -295,7 +307,8 @@ class ServeEngine:
             return
         blks = [self._write_blk(self.slots[i]) for i in active]
         pages = [self.slots[i].block_table[b] for i, b in zip(active, blks)]
-        self.kv.write_blocks(new_cache, active, blks, pages)
+        self.kv.write_blocks(new_cache, active, blks, pages,
+                             skip_static=True)
 
     def step(self) -> int:
         """Admit + one decode step for all active slots.  Returns #active."""
@@ -308,7 +321,8 @@ class ServeEngine:
         for i in active:
             toks[i, 0] = self.slots[i].generated[-1]
             temps[i] = self.slots[i].temperature
-        (logits, new_cache), rep = self.rt.decode(toks, self._decode_cache())
+        (logits, new_cache), rep = self.rt.decode(
+            toks, self._decode_cache(), self.extra_inputs(self.max_batch, 1))
         self._writeback(new_cache, active)
         ops = float(rep.ad_ops)
         share = ops / len(active)

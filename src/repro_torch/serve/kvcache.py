@@ -1,13 +1,17 @@
 """Paged KV block pool (port of ``repro.serve.kvcache.PagedKVCache``).
 
-The cache leaves that scale with ``max_len`` (attention ``k``/``v``, shaped
-``(La, B, S, KV, hd)``) are backed by pools shaped ``(num_blocks, La,
-block_size, KV, hd)``: a page holds ``block_size`` tokens of one request
-across all attention layers, and requests own per-slot block tables of page
-ids.  The rest of the cache is O(1) per request and stays slot-resident
-(the "state" part): the ``len`` counters, and the rwkv ``s``/``x_prev``
-recurrent state.  A model with no attention layer (rwkv6) has no paged
-leaf (``specs`` is empty): no pools, no pages, no block writes.
+The cache leaves that scale with the cache length (attention ``k``/``v``,
+shaped ``(La, B, S, KV, hd)``, and an encoder-decoder's cross-KV ``xk``/
+``xv``) are backed by pools shaped ``(num_blocks, La, block_size, KV,
+hd)``: a page holds ``block_size`` rows of one request across all layers,
+and requests own per-slot block tables of page ids; one table indexes every
+pool.  The cross-KV leaves are static (``static``): written at prefill and
+never by a decode step's write-back.  The rest of the cache is O(1) per
+request and stays slot-resident (the "state" part): the ``len``/``len0``
+counters, and the rwkv ``s``/``x_prev`` recurrent state.  A model with no
+attention layer (rwkv6) has no paged leaf (``specs`` is empty): no pools,
+no pages, no block writes.  The leaves come from the model's own cache
+functions (``models.registry.model_module``).
 
 Page 0 is permanently zero: block tables are padded with it, so the gather
 materializes exact zeros for unallocated tail pages — what makes paged
@@ -26,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.lm import PAGED_KEYS, init_state, mixers
+from ..models.registry import model_module
 
 ZERO_PAGE = 0               # permanently zero; backs unallocated table slots
 
@@ -59,12 +63,14 @@ class PagedKVCache:
             # residency for every slot + prefix-cache headroom + zero page
             num_blocks = 1 + (max_batch + 2) * self.pages_per_slot
         self.num_blocks = num_blocks
-        n_attn = mixers(cfg).count("attn")
-        # the paged leaves the model has
-        self.specs = PAGED_KEYS if n_attn else ()
-        block = (n_attn, block_size, cfg.n_kv_heads, cfg.hd)
-        self.pools = {k: torch.zeros((num_blocks,) + block, dtype=dtype,
-                                     device=device) for k in self.specs}
+        self._model = model_module(cfg)
+        # the paged leaves the model has, and those written at prefill only
+        self.specs = self._model.paged_keys(cfg)
+        self.static = self._model.STATIC_KEYS
+        probe = self._model.init_cache(cfg, 1, block_size, dtype, "meta")
+        self.pools = {k: torch.zeros(
+            (num_blocks, probe[k].shape[0]) + probe[k].shape[2:],
+            dtype=dtype, device=device) for k in self.specs}
         self.refcount = np.zeros((num_blocks,), np.int64)
         self.refcount[ZERO_PAGE] = 1            # never allocatable
         self.free: list = list(range(1, num_blocks))
@@ -80,15 +86,15 @@ class PagedKVCache:
         """Zeroed slot-resident state (every leaf but the paged ones);
         ``fill_len`` seeds the ``len`` counters for a continued prefill
         over a reused prefix."""
-        state = init_state(self.cfg, batch, self.dtype, self.device)
+        state = self._model.init_state(self.cfg, batch, self.dtype,
+                                       self.device)
         if fill_len:
             state["len"].fill_(fill_len)
         return state
 
-    @staticmethod
-    def state_only(cache: dict) -> dict:
+    def state_only(self, cache: dict) -> dict:
         """The slot-resident part of a cache."""
-        return {k: v for k, v in cache.items() if k not in PAGED_KEYS}
+        return {k: v for k, v in cache.items() if k not in self.specs}
 
     def assemble(self, state: dict, tables: np.ndarray) -> dict:
         """The dense cache for a decode / continued-prefill step, gathered
@@ -102,8 +108,11 @@ class PagedKVCache:
                 n_l, b, n_pages * bs, *g.shape[4:])
         return out
 
-    def write_blocks(self, cache: dict, slots, blks, pages) -> None:
-        """Scatter the (slot, blk) windows of a dense cache into pages."""
+    def write_blocks(self, cache: dict, slots, blks, pages,
+                     skip_static: bool = False) -> None:
+        """Scatter the (slot, blk) windows of a dense cache into pages;
+        ``skip_static`` leaves the static leaves' pages as they are (a
+        decode step's write-back)."""
         if not len(pages):
             return
         dev = self.device
@@ -111,6 +120,8 @@ class PagedKVCache:
         b = torch.as_tensor(np.asarray(blks), dtype=torch.long, device=dev)
         p = torch.as_tensor(np.asarray(pages), dtype=torch.long, device=dev)
         for key, pool in self.pools.items():
+            if skip_static and key in self.static:
+                continue
             leaf = cache[key].unflatten(2, (-1, self.block_size))
             data = leaf[:, s, b].transpose(0, 1)   # (A, L, bs, KV, hd)
             pool[p] = data.to(pool.dtype)

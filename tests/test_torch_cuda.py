@@ -374,3 +374,99 @@ def test_census_sums_to_the_engine_total_on_the_card(card, backend, scan):
     assert all(v.device.type == "cuda" and v.dtype == torch.int64
                for v in t.by_layer.values())
     assert t.total() == totals[0] == totals[1] > 0
+
+
+# ---------------------------------------------------------------------------
+# whisper-medium's projection shapes, at a decode batch and 1,500 encoder
+# rows (a 30-second window; a multiple of no row tile)
+# ---------------------------------------------------------------------------
+
+WHISPER_KN = [(1024, 1024), (1024, 4096), (4096, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("auto_range", [False, True], ids=["given", "auto"])
+@pytest.mark.parametrize("k,n", WHISPER_KN, ids=lambda v: str(v))
+@pytest.mark.parametrize("m", [4, 1500])
+def test_kernel_equals_plain_at_whisper_shapes(card, m, k, n, auto_range):
+    """K1 on integer operands with bf16 weights (exact in f32 and bf16):
+    y and ops bit for bit at K = 1,024 (8 groups) and 4,096, M = 4 (the
+    TMA body) and 1,500."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-8, 9, (m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-8, 9, (k, n)).astype(np.float32))
+    p = make_params(delta_r1=1.0 if auto_range else 16.0, signed=True,
+                    device=card, **REGS[0])
+    s = pack_scalars(p, torch.tensor(0.5), card)
+    kw = dict(_regs(p), auto_range=auto_range)
+    a, w = a.to(card), w.to(card, torch.bfloat16)
+    before = k1.LAUNCHES
+    y, ops = k1.trq_group_mvm_cuda(a, w, s, **kw)
+    assert k1.LAUNCHES == before + 1
+    y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_r)
+    assert int(ops) == int(ops_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regs", [None, dict(delta_r1=1.0, n_r1=6, n_r2=6,
+                                             m=4)],
+                         ids=["lossless", "default"])
+@pytest.mark.parametrize("k,n", WHISPER_KN, ids=lambda v: str(v))
+@pytest.mark.parametrize("m", [4, 1500])
+def test_xbar_mvm_kernel_equals_plain_at_whisper_shapes(card, m, k, n,
+                                                        regs):
+    """K3 at whisper's shapes: y, the per-output ops and the total bit for
+    bit (the plain version a block of 256 columns at a time: its bit-line
+    sums at M = 1,500, K = 4,096 would take 12.6 GB at once; columns are
+    independent)."""
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
+    rng = np.random.default_rng(m + k + n)
+    a_mask, w_mask = _xbar_operands(rng, card, m, k, n)
+    s, kw = _xbar_kwargs(card, regs)
+    before = k3.LAUNCHES
+    acc, ops, per = k3.xbar_mvm_cuda(a_mask, w_mask, s, per_output=True,
+                                     **kw)
+    assert k3.LAUNCHES == before + 1
+    total = 0
+    for c in range(0, n, 256):
+        acc_r, ops_r, per_r = xbar_mvm_ref(
+            a_mask, w_mask[:, :, c:c + 256].contiguous(), s,
+            per_output=True, **kw)
+        assert torch.equal(acc[:, c:c + 256], acc_r)
+        assert torch.equal(per[:, c:c + 256], per_r)
+        total += int(ops_r)
+    assert int(ops) == total
+
+
+@pytest.mark.cuda
+def test_xbar_mvm_repeats_bit_for_bit_beside_other_work(card):
+    """K3 at whisper's 1,500-row prefill shapes, launched 2,000 times each
+    while a second stream runs copies and matmuls: every output equals
+    the first, bit for bit.  A consumer warp that released a weight stage
+    without a proxy fence let the producer's next bulk copy land before
+    one of its reads, now and then (one weight word of one block off;
+    ``tools/k3_stage_race.py`` counts it)."""
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    rng = np.random.default_rng(11)
+    side = torch.cuda.Stream()
+    big = torch.empty(64 * 2 ** 20, device=card)
+    mm_a = torch.randn(2048, 2048, device=card)
+    s, kw = _xbar_kwargs(card, dict(delta_r1=1.0, n_r1=6, n_r2=6, m=4))
+    for k, n in [(4096, 1024), (1024, 1024), (1024, 4096)]:
+        a_mask, w_mask = _xbar_operands(rng, card, 1500, k, n)
+        base = k3.xbar_mvm_cuda(a_mask, w_mask, s, **kw)[0].clone()
+        outs, off = [], 0
+        for i in range(2000):
+            if i % 25 == 0:
+                with torch.cuda.stream(side):
+                    big.mul_(1.0001)
+                    torch.mm(mm_a, mm_a)
+            outs.append(k3.xbar_mvm_cuda(a_mask, w_mask, s, **kw)[0])
+            if len(outs) == 50:
+                off += sum(not torch.equal(o, base) for o in outs)
+                outs = []
+        torch.cuda.synchronize()
+        assert off == 0, f"{off} of 2000 launches at {k} x {n} off"

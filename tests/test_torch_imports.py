@@ -12,7 +12,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_trq_torch.py",
     ROOT / "benchmarks" / "serve_bench_torch.py",
     ROOT / "benchmarks" / "noise_sweep_torch.py",
-    ROOT / "tools" / "k1_flip_census.py"]
+    ROOT / "tools" / "k1_flip_census.py",
+    ROOT / "tools" / "k3_stage_race.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -44,7 +45,8 @@ def test_the_walk_sees_the_port():
     for mod in ("core/calibrate.py", "core/distribution.py",
                 "kernels/trq_quant/ops.py", "kernels/xbar_mvm/ops.py",
                 "telemetry/__init__.py", "telemetry/serve_report.py",
-                "pim/noise.py", "models/rwkv6.py", "configs/rwkv6_7b.py"):
+                "pim/noise.py", "models/rwkv6.py", "configs/rwkv6_7b.py",
+                "models/encdec.py", "configs/whisper_medium.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 

@@ -218,3 +218,22 @@ def test_shape_plan_constants_match_the_cuda_source():
     assert (env["kTN"], env["kMaxSplit"], env["kAccBudget"]) == \
         (k3.BLOCK_COLS, k3.MAX_SPLIT, k3.ACC_BUDGET)
     assert blocks and int(blocks.group(1)) == k3.BLOCKS_PER_SM
+
+
+def test_weight_stages_are_released_after_a_proxy_fence():
+    """The kernel's consumer warps read each weight stage through the
+    generic proxy and the producer refills it with a bulk copy (the async
+    proxy): every release of a stage (``mbar_arrive(empty ...)``) follows
+    a ``fence.proxy.async`` after the stage's last read, in the ``.cu``
+    (the card test ``test_xbar_mvm_repeats_bit_for_bit_beside_other_work``
+    shows the race the fence closes)."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "xbar_mvm.cu").read_text()
+    assert 'asm volatile("fence.proxy.async.shared::cta;"' in src
+    releases = [m.start() for m in re.finditer(r"mbar_arrive\(empty", src)]
+    assert releases
+    for at in releases:
+        window = src[max(0, at - 300):at]
+        assert "fence_proxy_async();" in window
+        assert "wt + c * kPlane" in src[max(0, at - 700):at]
