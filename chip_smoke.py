@@ -22,13 +22,15 @@ which fails the run on any error:
            group: a boundary flip from another f32 summation order), and
            on the ``w_gate`` of one 2,048-token prefill; rwkv6-7b's four
            projection shapes (4,096 -> 4,096 / 14,336 / 65,536 and 14,336
-           -> 4,096) at M = 1, 2, 4, 8, 16, 32 and 64, and whisper-medium's
+           -> 4,096) at M = 1, 2, 4, 8, 16, 32 and 64, whisper-medium's
            three (1,024 -> 1,024 / 4,096 and 4,096 -> 1,024) at M = 4, 8
-           and 1,500, exact and at the
+           and 1,500, and granite-moe-3b-a800m's two (1,536 -> 1,536 / 512)
+           at M = 1, 2, 3, 4, 16 and 64, exact and at the
            float bar with equal ops; times of the whole call (both passes)
            at M = 4, 16, 64 and that prefill (on rwkv6's shapes, at those
            phase 11's trace gives the kernel, ``RWKV_PATH``; on whisper's,
-           at phase 12's, ``WHISPER_PATH``) beside the
+           at phase 12's, ``WHISPER_PATH``; on granite's, at phase 13's,
+           ``GRANITE_PATH``) beside the
            bound (bf16 weights read at 2 bytes each): the device time (20
            launches, each after an L2 flush, replayed as one CUDA graph,
            less the flushes), the time of one call as a caller sees it,
@@ -75,7 +77,8 @@ which fails the run on any error:
            shapes for M = 1, 4, 16, 17 and 64 (decode, continued prefill,
            prefill and the ragged tiles), rwkv6-7b's four projection shapes
            at M = 1, 2, 4, 8, 16, 32 and 64, whisper-medium's three at M =
-           4, 8 and 1,500, ragged 3 x 300 x 130, and one
+           4, 8 and 1,500, granite-moe-3b-a800m's two at M = 1, 2, 3, 4, 16
+           and 64, ragged 3 x 300 x 130, and one
            shape with k_i = k_w = 4 (the general body), with the default
            registers, a fractional step and the lossless mode: op counts
            (total and per output) exactly equal everywhere; y bitwise equal
@@ -85,7 +88,7 @@ which fails the run on any error:
            k_i k_w G u |y| (u = 2^-24) of the f64 control; each kernel
            body's shapes (the wrapper's shape plan) are printed; timed at
            M = 4, 16 and 64 (on rwkv6's shapes, at phase 11's; on
-           whisper's, at phase 12's) beside the
+           whisper's, at phase 12's; on granite's, at phase 13's) beside the
            bound (packed bytes at 3.35 TB/s or
            the 0/1 products at the card's one-bit tensor-core rate,
            ``B1_OPS_PER_S``) and ``torch._int_mm`` on the unpacked int8 0/1
@@ -187,9 +190,36 @@ which fails the run on any error:
            against ``pallas`` at the phase-4 bar (the per-depth gate on
            the decoder stream), and on ``bit_exact`` through K3's plain
            version at the phase-7 bar.
+13. granite full-width granite-moe-3b-a800m (32 layers, d=1,536, 24
+           query and 8 KV heads of 64, 40 experts of d_ff 512, top-8,
+           vocab 49,155, tied embeddings; bf16, seeded random weights) on
+           the prepared ``pallas`` datapath, then on ``bit_exact``, through
+           the paged engine on phase 3's trace, with prefix reuse on and
+           then off.  Only the attention projections are planned (the
+           expert FFNs and the router are plain torch, as the reference's
+           are plain ``jnp``): every forward (prefill, continued prefill,
+           decode step) launches K1 (then K3) 128 times; every request's
+           A/D ops equal the closed form derived from ``iter_linears``
+           (11,010,048 ops a token row on ``pallas``, 7 a conversion, 64
+           bit-line conversions each on ``bit_exact``) over its unreused
+           prefill rows and its share of each decode step's 4 rows; reuse
+           serves the 48-token prefix to the 7 later requests exactly when
+           on; every logit finite.  Readings: tokens/s and mean TTFT in
+           both modes, the memory allocated after compile, one batch-4
+           decode step and one 64-token prefill (host clock) and their
+           ``torch.profiler`` split (K1/K3, the rest of the projections,
+           attention, the ``moe`` span: router, dispatch, experts and
+           combine; device-idle share).  Checks: a full-width prefill on
+           ``fake_quant`` against ``pallas`` at the phase-4 bar (the
+           per-depth gate), the same prefill on ``bit_exact`` through K3's
+           plain version at the phase-7 bar, and layer 0's MoE on the card
+           in bf16 against the same layer in f64 (decode and 64-token
+           prefill batches): the same experts for every token whose k-th
+           and (k+1)-th probabilities differ by more than 1e-6, output
+           within 2e-2 relative L2.
 
-Kernel launch counts are reset just before each main path (phases 3, 11
-and 12 for K1, phases 7, 11 and 12 for K3, the calibration of phase 8
+Kernel launch counts are reset just before each main path (phases 3, 11,
+12 and 13 for K1, phases 7, 11, 12 and 13 for K3, the calibration of phase 8
 for both of K2's entries) and read just after; launches that compare a
 kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -270,6 +300,20 @@ WHISPER_DECODE_LAUNCHES = 192
 WHISPER_FRAME_ROW = 2_367_488
 WHISPER_XKV_ROW = 393_216
 WHISPER_DEC_ROW = 2_752_512
+GRANITE_ARCH = "granite-moe-3b-a800m"
+GRANITE_LAYERS = 32
+# (K, N) of wq/wo and of wk/wv: the only planned projections (the expert
+# FFNs and the router bypass pim_linear, as in the reference)
+GRANITE_KN = ((1536, 1536), (1536, 512))
+GRANITE_LAUNCHES = 128             # 32 x 4 attention projections a forward
+# phases 2 and 6: rows checked at granite's shapes: 1-4 (decode), 16 (a
+# continued prefill's suffix under reuse), 64 (the trace's bucket)
+GRANITE_MS = (1, 2, 3, 4, 16, 64)
+# the rows phase 13's trace gives K1 and K3, where both are timed
+GRANITE_PATH = sorted((m, k, n) for m in (4, 16, 64) for k, n in GRANITE_KN)
+GRANITE_ROW = 11_010_048           # pallas A/D ops of a token row (7 each)
+ROUTER_MARGIN = 1e-6               # phase 13: k-th less (k+1)-th probability
+ROUTER_REL_BAR = 2e-2              # phase 13: bf16 MoE layer against f64
 WKV_TOL = 1e-4                     # phase 11: scan against recurrence
 PARAM_GRID = [dict(n_r1=4, n_r2=4, m=3, bias=0.0),    # tests/test_kernels.py
               dict(n_r1=2, n_r2=6, m=1, bias=0.0),
@@ -438,6 +482,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases = [((m, k, n), default) for m in K1_MS for k, n in PROJ_KN]
     cases += [((m, k, n), default) for m in RWKV_MS for k, n in RWKV_KN]
     cases += [((m, k, n), default) for m, k, n in WHISPER_PATH]
+    cases += [((m, k, n), default) for m in GRANITE_MS
+              for k, n in GRANITE_KN]
     cases += [((3, 300, 130), default), (TMA_RAGGED, default)]
     cases += [(shape, r) for shape in ((64, 3072, 1024), (3, 300, 130))
               for r in R1_REGS]
@@ -464,7 +510,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
                 n_exact += 1
     log(f"  exact: {n_exact} integer cases (M in {K1_MS} at llama's four "
         f"projection shapes, M in {RWKV_MS} at rwkv6's four, M in "
-        f"{WHISPER_MS} at whisper's three, 3x300x130 and "
+        f"{WHISPER_MS} at whisper's three, M in {GRANITE_MS} at granite's "
+        f"two, 3x300x130 and "
         f"{TMA_RAGGED}; bf16 and f32 weights; registers "
         f"given and auto-ranged): y bitwise equal, ops equal")
 
@@ -477,6 +524,9 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
               for m in RWKV_MS for k, n in RWKV_KN for auto in (False, True)]
     cases += [((m, k, n), default, torch.bfloat16, auto)
               for m, k, n in WHISPER_PATH for auto in (False, True)]
+    cases += [((m, k, n), default, torch.bfloat16, auto)
+              for m in GRANITE_MS for k, n in GRANITE_KN
+              for auto in (False, True)]
     cases += [((64, 3072, 1024), r, torch.bfloat16, True) for r in R1_REGS]
     cases += [(shape, default, wdt, True) for wdt in wdtypes
               for shape in ((3, 300, 130), TMA_RAGGED)]
@@ -531,7 +581,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
         if not ok:
             raise AssertionError("K1 outside the float bar:" + line)
         if ((k, n) in PROJ_KN and m in K1_TIMED_MS or (m, k, n) in
-                RWKV_PATH or (m, k, n) in WHISPER_PATH) and auto and \
+                RWKV_PATH or (m, k, n) in WHISPER_PATH or (m, k, n) in
+                GRANITE_PATH) and auto and \
                 wdt == torch.bfloat16 and rk is default:
             kern = lambda: trq_group_mvm_cuda(a, w, s, **kw)  # noqa: E731
             ms = device_ms(torch, kern, 20, flush)
@@ -705,7 +756,7 @@ def labelled_spans(torch):
     can attribute device time to them (the package itself carries no
     spans).  A function the package does not have (the pre-fit after it
     was folded into K1) is left out."""
-    from repro_torch.models import attention, encdec, layers, rwkv6
+    from repro_torch.models import attention, encdec, layers, moe, rwkv6
     from repro_torch.pim import plan
     from repro_torch.serve import kvcache
     targets = [(layers, "pim_linear", "projections"),
@@ -715,6 +766,7 @@ def labelled_spans(torch):
                (attention, "decode_attention", "attention"),
                (attention, "_scatter_time", "attention"),
                (encdec, "apply_cross_attention", "cross-attention"),
+               (moe, "apply_moe", "moe"),
                (encdec.EncDec, "encode", "encoder"),
                (kvcache.PagedKVCache, "assemble", "assemble"),
                (kvcache.PagedKVCache, "write_blocks", "write-back"),
@@ -773,7 +825,7 @@ def profile_forward(torch, fn) -> dict:
             wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
     labels = ("projections", "pre-fit", "attention", "wkv", "norm",
-              "cross-attention", "encoder", "assemble", "write-back")
+              "cross-attention", "encoder", "assemble", "write-back", "moe")
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and e.name not in labels             # the spans' device mirrors
            and not getattr(e, "is_user_annotation", False)]
@@ -836,7 +888,7 @@ def profile_one(torch, key: str, fn) -> dict:
         f"ms, attention {p['attention_ms']:.2f} ms, wkv "
         f"{p['wkv_ms']:.2f} ms, norms {p['norm_ms']:.2f} ms"
         + "".join(f", {k} {p[k + '_ms']:.2f} ms" for k in (
-            "cross-attention", "encoder", "assemble", "write-back")
+            "cross-attention", "encoder", "assemble", "write-back", "moe")
             if p[k + "_ms"]))
     for t in p["top_kernels"]:
         log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
@@ -1327,6 +1379,7 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases = [(m, k, n, 8) for m in K3_MS for k, n in PROJ_KN]
     cases += [(m, k, n, 8) for m in RWKV_MS for k, n in RWKV_KN]
     cases += [(m, k, n, 8) for m, k, n in WHISPER_PATH]
+    cases += [(m, k, n, 8) for m in GRANITE_MS for k, n in GRANITE_KN]
     cases += [(3, 300, 130, 8), K3_NARROW]
     for (m, k, n, bits) in cases:
         a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev, bits)
@@ -1371,7 +1424,8 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                 raise AssertionError("K3 outside its bar:" + line)
             if name == "default" and bits == 8 and (
                     (k, n) in PROJ_KN and m in K3_TIMED_MS or
-                    (m, k, n) in RWKV_PATH or (m, k, n) in WHISPER_PATH):
+                    (m, k, n) in RWKV_PATH or (m, k, n) in WHISPER_PATH
+                    or (m, k, n) in GRANITE_PATH):
                 kw_main = dict(kw, per_output=False)
                 kern = lambda: k3.xbar_mvm_cuda(  # noqa: E731
                     a_mask, w_mask, s, **kw_main)
@@ -2173,8 +2227,9 @@ def frame_feed(frames):
 
 @contextlib.contextmanager
 def launches_per_call(torch, rt, counter):
-    """Record ``counter.LAUNCHES`` spent by each ``rt.prefill`` and
-    ``rt.decode`` call, and whether its logits are finite."""
+    """Record ``counter.LAUNCHES`` spent by each ``rt.prefill`` (a
+    continued prefill's among them) and ``rt.decode`` call, and whether
+    its logits are finite."""
     calls = {"prefill": [], "decode": [], "finite": True}
 
     def wrap(kind, fn):
@@ -2186,11 +2241,12 @@ def launches_per_call(torch, rt, counter):
             return (logits, cache), rep
         return inner
     rt.prefill = wrap("prefill", rt.prefill)
+    rt.prefill_cont = wrap("prefill", rt.prefill_cont)
     rt.decode = wrap("decode", rt.decode)
     try:
         yield calls
     finally:
-        del rt.prefill, rt.decode
+        del rt.prefill, rt.prefill_cont, rt.decode
 
 
 def whisper_trace(torch, rt, frames, counter, kname: str,
@@ -2345,6 +2401,209 @@ def whisper_phase(torch, rec1: dict, rec3: dict, cfg,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: full-width granite-moe-3b-a800m
+# ---------------------------------------------------------------------------
+
+def planned_conversions(model) -> int:
+    """Conversions of one token row through every planned projection of
+    ``model`` (``iter_linears``: the ``PimLinear``s, no expert FFN and no
+    router): N x ceil(K/128) each."""
+    from repro_torch.pim.plan import iter_linears
+    return sum(lin.w.shape[1] * -(-lin.w.shape[0] // 128)
+               for _, lin in iter_linears(model))
+
+
+def granite_config():
+    from repro_torch.models.registry import get_config
+    cfg = get_config(GRANITE_ARCH).replace(param_dtype="bfloat16",
+                                           pim_backend="pallas",
+                                           remat="none")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.n_experts, cfg.experts_per_token, cfg.d_ff, cfg.vocab_size,
+            cfg.tie_embeddings) == (GRANITE_LAYERS, 1536, 24, 8, 64, 40, 8,
+                                    512, 49155, True)
+    return cfg
+
+
+def granite_trace(torch, rt, counter, kname: str, slices: int,
+                  reuse: bool) -> dict:
+    """Phase 3's trace (:func:`trace_prompts`: 8 requests, a shared
+    48-token prefix plus a 16-token tail, 16 new tokens, max batch 4,
+    greedy) through the paged engine with prefix reuse on or off, with
+    ``counter.LAUNCHES`` set to 0 just before and read just after.  Fails
+    unless every forward (prefill, continued prefill, decode step)
+    launched the kernel ``GRANITE_LAUNCHES`` times, every logit was
+    finite, every request's A/D ops equal the closed form (7 ops a
+    conversion, ``slices`` conversions per group and output, over its
+    prefill's unreused rows and its share of every decode step's
+    ``TRACE_BATCH`` rows), every request got 16 in-vocab tokens, and reuse
+    served the prefix to the 7 later requests exactly when it was on."""
+    from repro_torch.serve import ServeEngine
+    cfg = rt.cfg
+    eng = ServeEngine(rt, max_batch=TRACE_BATCH, max_len=256,
+                      block_size=16, prefix_reuse=reuse)
+    prompts = trace_prompts(cfg)
+    with launches_per_call(torch, rt, counter) as calls:
+        counter.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=16)
+        done = sorted(eng.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counter.LAUNCHES
+    st = eng.stats()
+    row = 7 * slices * planned_conversions(rt.model)
+    ok = len(done) == len(prompts)
+    per_req = []
+    for r, share in zip(done, decode_shares(len(prompts), TRACE_BATCH, 16)):
+        pre = row * (len(r.prompt) - r.reused_tokens)
+        want = pre + row * TRACE_BATCH * share
+        ok = ok and r.prefill_ad_ops == pre and r.ad_ops == want and \
+            len(r.generated) == 16 and all(
+                0 <= t < cfg.vocab_size for t in r.generated)
+        per_req.append(r.ad_ops)
+        log(f"  req {r.uid}: reused {r.reused_tokens} prompt tokens, ttft "
+            f"{1e3 * (r.first_token_t - r.submit_t):.1f} ms, ad_ops "
+            f"{r.ad_ops:.0f} (closed form {want:.0f}; prefill "
+            f"{r.prefill_ad_ops:.0f}, closed form {pre}), tokens "
+            f"{list(r.generated)}")
+    forwards = len(calls["prefill"]) + len(calls["decode"])
+    log(f"  reuse {'on' if reuse else 'off'}: served {st['requests']} "
+        f"requests, {st['decode_tokens']} tokens in {wall:.2f} s: "
+        f"{st['tokens_per_s']:.2f} tok/s, mean ttft "
+        f"{1e3 * st['mean_ttft_s']:.1f} ms, total ad_ops "
+        f"{st['total_ad_ops']:.0f} ({row} a token row); {kname} launches "
+        f"{launches} over {forwards} forwards, "
+        f"{sorted(set(calls['prefill'] + calls['decode']))} each; logits "
+        f"finite {calls['finite']}")
+    if set(calls["prefill"] + calls["decode"]) != {GRANITE_LAUNCHES} or \
+            launches != GRANITE_LAUNCHES * forwards:
+        raise AssertionError(f"granite: {kname} launches per forward off "
+                             f"{GRANITE_LAUNCHES}")
+    reused = sorted(r.reused_tokens for r in done)
+    if reused != ([0] + [48] * 7 if reuse else [0] * 8):
+        raise AssertionError(f"granite: reused prompt tokens {reused} with "
+                             f"reuse {'on' if reuse else 'off'}")
+    if not ok or not calls["finite"]:
+        raise AssertionError("granite: A/D ops per request off the closed "
+                             "form, tokens missing or logits not finite")
+    return dict(tokens_per_s=st["tokens_per_s"],
+                mean_ttft_ms=1e3 * st["mean_ttft_s"],
+                total_ad_ops=st["total_ad_ops"], ad_ops_per_request=per_req,
+                forwards=forwards, launches=launches, wall_s=wall,
+                tokens=[list(r.generated) for r in done])
+
+
+def router_check(torch, rt, device: str = "cuda") -> dict:
+    """Layer 0's MoE as compiled (bf16) on the card against the same layer
+    cast to f64, on the card, at a batch-4 decode step (4 groups of one
+    token) and a batch-4 64-token prefill (4 groups of 64, capacity 16):
+    seeded N(0, 1) inputs rounded to bf16, the layer's input dtype.  The
+    two runs pick the same experts for every token whose k-th and
+    (k+1)-th f64 probabilities differ by more than ``ROUTER_MARGIN`` (f32
+    router logits against f64 ones differ by about 1e-7; TF32 or another
+    reduced precision would move them by about 1e-3), and the outputs lie
+    within ``ROUTER_REL_BAR`` in relative L2 (bf16 activations between the
+    expert products: a few roundings of 2^-9 each)."""
+    import copy
+    from repro_torch.models import moe
+    cfg = rt.cfg
+    layer = rt.model.layers[0].moe
+    ref = copy.deepcopy(layer).double()
+    k = cfg.experts_per_token
+    gen = torch.Generator(device=device).manual_seed(13)
+    out = {}
+    for label, s in (("decode", 1), ("prefill", 64)):
+        x = torch.randn(TRACE_BATCH, s, cfg.d_model, generator=gen,
+                        device=device).bfloat16()
+        with torch.no_grad():
+            y, _ = layer(x)
+            y64, _ = ref(x.double())
+            group = min(cfg.moe_group_size, s)
+            xg = x.reshape(-1, group, cfg.d_model)
+            _, _, idx = moe.route(xg, layer.router.w, k)
+            p64, _, idx64 = moe.route(xg.double(), ref.router.w, k)
+        top = p64.sort(-1, descending=True).values
+        clear = (top[..., k - 1] - top[..., k]) > ROUTER_MARGIN
+        same = (idx.sort(-1).values == idx64.sort(-1).values).all(-1)
+        rel = rel_l2(y.double(), y64)
+        out[label] = dict(tokens=int(clear.numel()),
+                          clear_tokens=int(clear.sum()),
+                          same_experts=int((same & clear).sum()),
+                          same_experts_all=int(same.sum()), rel_l2=rel,
+                          finite=bool(torch.isfinite(y).all()))
+        log(f"  router, {label} {tuple(x.shape)}: the same experts as f64 "
+            f"for {int((same & clear).sum())} of {int(clear.sum())} tokens "
+            f"past the {ROUTER_MARGIN:.0e} margin ({int(same.sum())} of "
+            f"{clear.numel()} in all); output relative L2 to f64 "
+            f"{rel:.3e} (bar {ROUTER_REL_BAR:.0e})")
+        if not bool(same[clear].all()) or rel > ROUTER_REL_BAR or \
+                not out[label]["finite"]:
+            raise AssertionError(f"granite: the MoE layer on the card "
+                                 f"disagrees with f64 ({label})")
+    del ref
+    return out
+
+
+def granite_phase(torch, rec1: dict, rec3: dict, cfg,
+                  device: str = "cuda") -> dict:
+    """granite-moe-3b-a800m at ``cfg`` on ``pallas`` through K1, then on
+    ``bit_exact`` through K3 (see the module docstring, phase 13)."""
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+
+    torch.cuda.reset_peak_memory_stats()
+    rt, gib = compile_pallas(torch, cfg, device)
+    n_params = sum(t.numel() for t in rt.model.state_dict().values())
+    row = planned_conversions(rt.model)
+    log(f"  {n_params / 1e9:.3f} B parameters; {len(rt.plan)} planned "
+        f"projections, {row} conversions a token row ({7 * row} A/D ops on "
+        f"pallas)")
+    if len(rt.plan) != GRANITE_LAUNCHES or 7 * row != GRANITE_ROW:
+        raise AssertionError(f"granite: {len(rt.plan)} layer plans and "
+                             f"{7 * row} ops a row, not {GRANITE_LAUNCHES} "
+                             f"and {GRANITE_ROW}")
+    prompt = trace_prompts(cfg)[0]
+    out = dict(params=n_params, gib_after_compile=gib)
+    runs = {}
+    for backend, counter, kname, slices in (("pallas", k1, "K1", 1),
+                                            ("bit_exact", k3, "K3",
+                                             SLICES)):
+        if backend == "bit_exact":
+            t0 = time.perf_counter()
+            rt = rt.with_overrides(backend="bit_exact")
+            torch.cuda.synchronize()
+            log(f"  programmed {len(rt.plan)} bit_exact layer plans in "
+                f"{time.perf_counter() - t0:.1f} s; "
+                f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+                f"allocated")
+            warm(rt)
+        run = runs[backend] = {
+            f"reuse_{'on' if reuse else 'off'}": granite_trace(
+                torch, rt, counter, kname, slices, reuse)
+            for reuse in (True, False)}
+        run["launches"] = sum(r["launches"] for r in run.values())
+        run.update(forward_times(torch, rt, prompt))
+        log(f"  {backend}: one decode step (batch {TRACE_BATCH}) "
+            f"{run['decode_step_ms']:.1f} ms, one 64-token prefill "
+            f"{run['prefill64_ms']:.1f} ms")
+        run["profile"] = profile_forwards(torch, rt, prompt)
+        if backend == "pallas":
+            log("  a full-width prefill, fake_quant against pallas (the "
+                "phase-4 bar)")
+            out.update(fake_quant_check(torch, rt, prompt, 256))
+            out["router"] = router_check(torch, rt, device)
+        else:
+            run.update(plain_k3_check(torch, rt, prompt, 256))
+    for rec, backend in ((rec1, "pallas"), (rec3, "bit_exact")):
+        rec["launches_by_path"][GRANITE_ARCH] = runs[backend]["launches"]
+    out.update(runs)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
 def pallas_config():
     from repro_torch.models.registry import get_config
     cfg = get_config(ARCH).replace(param_dtype="bfloat16",
@@ -2449,6 +2708,14 @@ def main(argv) -> int:
     t12 = time.perf_counter()
     whisper = whisper_phase(torch, rec, rec3, whisper_config())
     whisper["phase_s"] = time.perf_counter() - t12
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 13: serve full-width {GRANITE_ARCH} on pallas and "
+        f"bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"still allocated)")
+    t13 = time.perf_counter()
+    granite = granite_phase(torch, rec, rec3, granite_config())
+    granite["phase_s"] = time.perf_counter() - t13
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -2473,6 +2740,7 @@ def main(argv) -> int:
     log(json.dumps({"noise": noise}))
     log(json.dumps({"rwkv6": rwkv}))
     log(json.dumps({"whisper": whisper}))
+    log(json.dumps({"granite": granite}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())

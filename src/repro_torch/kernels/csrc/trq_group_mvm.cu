@@ -36,7 +36,9 @@
 //     stages in flight, each a 2-D TMA copy of the 32 KB weight tile plus
 //     the group's a slice into shared memory on an mbarrier, so loads stay
 //     in flight while the 8 consumer warps compute and reduce.  TMA fills
-//     reads past K, N or M with zeros.
+//     reads past K, N or M with zeros.  A consumer warp releases a stage
+//     after its last read of it, each lane behind a proxy fence: the
+//     refill is an async-proxy write into the same shared memory.
 //   trq_group_mvm_psums (everything else: f32 weights, M > 16, unaligned
 //     rows).  One block per (m-tile of up to 16 rows, 128-column tile,
 //     128-row group).  Each of the 128 threads issues its 16 loads of 16
@@ -293,6 +295,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
 }
+// Orders this thread's generic-proxy accesses to shared memory before
+// later async-proxy ones (the producer's next tensor copy into the stage).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -405,7 +412,10 @@ trq_group_mvm_psums_tma(const __grid_constant__ CUtensorMap wmap,
             ps[q][j] = fmaf(av[q][i], wf[j], ps[q][j]);
       }
       if (mc + 4 >= MT || mc / 4 + 1 >= chunks) {
-        // the stage's last read: hand it back to the producer
+        // the stage's last read: hand it back to the producer.  Its refill
+        // is an async-proxy write, so a proxy fence orders this lane's
+        // generic reads of the weight and activation tiles before it
+        fence_proxy_async();
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + st);
       }

@@ -1,5 +1,6 @@
-"""Decoder-only LM: the dense GQA decoder and the attention-free rwkv6
-decoder of ``repro.models.lm``.
+"""Decoder-only LM: the dense GQA decoder, the MoE decoder (an expert FFN
+in place of the MLP, or beside it with a dense residual) and the
+attention-free rwkv6 decoder of ``repro.models.lm``.
 
 The reference scans the layer stack over periods; the port runs a Python
 loop over ``layers``.  The cache is one dict of tensors, each stacked over
@@ -27,9 +28,11 @@ from ..configs.base import ModelConfig
 from .attention import Attention
 from .layers import (MLP, Embed, PimContext, PimLinear, RMSNorm, cdtype,
                      pdtype)
+from .moe import MoE
 from .rwkv6 import RWKV6TimeMix, dims as rwkv_dims
 
-LAYER_KINDS = (("attn", "mlp"), ("rwkv", "mlp"))
+LAYER_KINDS = (("attn", "mlp"), ("attn", "moe"), ("attn", "moe+mlp"),
+               ("rwkv", "mlp"))
 PAGED_KEYS = ("k", "v")         # cache leaves that scale with max_len
 STATIC_KEYS = ()                # none is written at prefill only
 
@@ -53,7 +56,7 @@ class DecoderLayer(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind} is not ported; ported: "
                 f"{LAYER_KINDS}")
-        self.mixer = kind[0]
+        self.mixer, self.ffn = kind
         lname = layer_name(cfg, depth)
         self.norm1 = RMSNorm(cfg.d_model, device=device)
         if self.mixer == "attn":
@@ -61,7 +64,10 @@ class DecoderLayer(nn.Module):
         else:
             self.rwkv = RWKV6TimeMix(cfg, f"{lname}/rwkv", dtype, device)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg, f"{lname}/mlp", dtype, device)
+        if self.ffn in ("mlp", "moe+mlp"):
+            self.mlp = MLP(cfg, f"{lname}/mlp", dtype, device)
+        if self.ffn in ("moe", "moe+mlp"):
+            self.moe = MoE(cfg, dtype, device)
 
     def forward(self, x, ctx: PimContext, positions, cache=None,
                 cont: bool = False):
@@ -73,17 +79,23 @@ class DecoderLayer(nn.Module):
         else:
             o, new_cache = self.rwkv(h, ctx, cache=cache)
         x = x + o
-        x = x + self.mlp(self.norm2(x, eps), ctx)
-        return x, new_cache
+        h = self.norm2(x, eps)
+        if self.ffn == "mlp":
+            return x + self.mlp(h, ctx), new_cache
+        # the load-balancing loss is for training, which is not ported
+        mo, _ = self.moe(h)
+        if self.ffn == "moe":
+            return x + mo, new_cache
+        return x + mo + self.mlp(h, ctx), new_cache   # arctic's order
 
 
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in ("dense", "ssm") or cfg.frontend != "none" \
-                or cfg.encoder_layers:
-            raise NotImplementedError(f"{cfg.name}: only the dense and the "
-                                      f"rwkv6 decoders are ported")
+        if cfg.family not in ("dense", "moe", "ssm") \
+                or cfg.frontend != "none" or cfg.encoder_layers:
+            raise NotImplementedError(f"{cfg.name}: only the dense, the MoE "
+                                      f"and the rwkv6 decoders are ported")
         self.cfg = cfg
         dt = pdtype(cfg)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, device)

@@ -1,5 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> config, model and seeded init
-(the ``llama3.2-3b``, ``rwkv6-7b`` and ``whisper-medium`` slice of
+(the ``llama3.2-3b``, ``rwkv6-7b``, ``whisper-medium``,
+``granite-moe-3b-a800m`` and ``arctic-480b`` slice of
 ``repro.models.registry``).
 
 The reference's init draws from ``jax.random``, which PyTorch cannot
@@ -7,7 +8,10 @@ replay; :func:`init` draws from a ``torch.Generator`` with the same
 distributions and scales (``init_linear``: N(0, 1) * d_in**-0.5;
 ``init_embed``: N(0, 1) * d_model**-0.5; biases 0; RMSNorm scales 1 and
 LayerNorm scales 1 and biases 0, in f32; the
-rwkv time-mix's leaves as ``repro.models.rwkv6.init_rwkv``), on the
+rwkv time-mix's leaves as ``repro.models.rwkv6.init_rwkv``; the MoE's as
+``repro.models.moe.init_moe``: ``w_gate``/``w_up`` N(0, 1) * d**-0.5 and
+``w_down`` N(0, 1) * d_ff**-0.5 in the parameter dtype, the router
+N(0, 1) * d**-0.5 rounded through the parameter dtype and held in f32), on the
 target device so a full-width model never passes through host memory.
 Parity tests instead load the reference's own weights (``repro_torch.convert``).
 """
@@ -20,9 +24,11 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .layers import Embed, LayerNorm, PimLinear, RMSNorm, pdtype
+from .moe import MoE
 from .rwkv6 import HeadNormAffine, RWKV6TimeMix
 
-ARCHS = ("llama3.2-3b", "rwkv6-7b", "whisper-medium")
+ARCHS = ("llama3.2-3b", "rwkv6-7b", "whisper-medium", "granite-moe-3b-a800m",
+         "arctic-480b")
 
 
 def _module_name(arch: str) -> str:
@@ -93,6 +99,17 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             state[pre + "decay_lora_b"] = torch.zeros(lora, da, dtype=dt,
                                                       device=device)
             state[pre + "bonus_u"] = torch.zeros(da, **f32)
+        elif isinstance(mod, MoE):
+            d, e = mod.router.w.shape
+            f = mod.w_gate.shape[2]
+
+            def normal(*shape, scale):
+                x = torch.randn(*shape, generator=gen, device=device)
+                return (x * scale).to(dt)
+            state[pre + "router.w"] = normal(d, e, scale=d ** -0.5).float()
+            state[pre + "w_gate"] = normal(e, d, f, scale=d ** -0.5)
+            state[pre + "w_up"] = normal(e, d, f, scale=d ** -0.5)
+            state[pre + "w_down"] = normal(e, f, d, scale=f ** -0.5)
         elif isinstance(mod, HeadNormAffine):
             state[pre + "scale"] = torch.ones(mod.scale.shape[0], **f32)
             state[pre + "bias"] = torch.zeros(mod.bias.shape[0], **f32)

@@ -470,3 +470,38 @@ def test_xbar_mvm_repeats_bit_for_bit_beside_other_work(card):
                 outs = []
         torch.cuda.synchronize()
         assert off == 0, f"{off} of 2000 launches at {k} x {n} off"
+
+
+@pytest.mark.cuda
+def test_trq_group_mvm_tma_repeats_bit_for_bit_beside_other_work(card):
+    """K1's TMA body at granite-moe-3b-a800m's decode shapes (1,536 ->
+    1,536 / 512, bf16 weights, M = 4), launched 2,000 times each while a
+    second stream runs copies and matmuls: every output equals the first,
+    bit for bit, and equals the plain version's on integer operands."""
+    rng = np.random.default_rng(12)
+    side = torch.cuda.Stream()
+    big = torch.empty(64 * 2 ** 20, device=card)
+    mm_a = torch.randn(2048, 2048, device=card)
+    p = make_params(delta_r1=1.0, n_r1=6, n_r2=6, m=4, signed=True,
+                    device=card)
+    s = pack_scalars(p, torch.tensor(0.5), card)
+    kw = dict(_regs(p), auto_range=True)
+    for k, n in [(1536, 1536), (1536, 512)]:
+        a = torch.from_numpy(rng.integers(-8, 9, (4, k)).astype(
+            np.float32)).to(card)
+        w = torch.from_numpy(rng.integers(-8, 9, (k, n)).astype(
+            np.float32)).to(card, torch.bfloat16)
+        base = k1.trq_group_mvm_cuda(a, w, s, **kw)[0].clone()
+        assert torch.equal(base, trq_group_mvm_ref(a, w, s, **kw)[0])
+        outs, off = [], 0
+        for i in range(2000):
+            if i % 25 == 0:
+                with torch.cuda.stream(side):
+                    big.mul_(1.0001)
+                    torch.mm(mm_a, mm_a)
+            outs.append(k1.trq_group_mvm_cuda(a, w, s, **kw)[0])
+            if len(outs) == 50:
+                off += sum(not torch.equal(o, base) for o in outs)
+                outs = []
+        torch.cuda.synchronize()
+        assert off == 0, f"{off} of 2000 launches at {k} x {n} off"

@@ -277,3 +277,23 @@ def test_build_names_sources_and_flags():
     cells = int(re.search(r"kMaxCells = (\d+);", src).group(1))
     from repro_torch.kernels.trq_group_mvm.kernel import STATS
     assert STATS == 1 + cells // 2
+
+
+def test_tma_stages_are_released_after_a_proxy_fence():
+    """The TMA body's consumer warps read each stage (weight and activation
+    tiles) through the generic proxy and the producer refills it with a
+    tensor copy (the async proxy): every release of a stage
+    (``mbar_arrive(empty ...)``) follows a ``fence.proxy.async`` after the
+    stage's last read, in the ``.cu`` (the card test
+    ``test_trq_group_mvm_tma_repeats_bit_for_bit_beside_other_work``
+    stresses the release)."""
+    import re
+    src = (build.CSRC / "trq_group_mvm.cu").read_text()
+    assert 'asm volatile("fence.proxy.async.shared::cta;"' in src
+    releases = [m.start() for m in re.finditer(r"mbar_arrive\(empty", src)]
+    assert len(releases) == 1
+    for at in releases:
+        window = src[max(0, at - 400):at]
+        assert "fence_proxy_async();" in window
+        assert "the stage's last read" in window
+        assert "Weights<true>::widen(raw[i], wf)" in src[max(0, at - 1200):at]

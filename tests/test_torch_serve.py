@@ -148,9 +148,11 @@ def test_launch_serve_cli_runs_on_cpu(capsys):
 
 
 # the reference configs whose fields mark a recurrent mixer (rwkv6, jamba's
-# mamba), an encoder (whisper) or a patch frontend (internvl2)
+# mamba), an encoder (whisper) or a patch frontend (internvl2), and the
+# all-attention ones (llama; the MoE decoders granite and arctic)
 GATE_ARCHS = ["llama3.2-3b", "rwkv6-7b", "jamba-v0.1-52b", "whisper-medium",
-              "internvl2-76b"]
+              "internvl2-76b", "granite-moe-3b-a800m", "arctic-480b"]
+ATTN_ONLY = ("llama3.2-3b", "granite-moe-3b-a800m", "arctic-480b")
 
 
 def _port_config(arch):
@@ -174,7 +176,7 @@ def test_prefix_reuse_gate_matches_the_reference(arch):
     from repro.serve.engine import _attn_only as jattn_only
     from repro_torch.serve.engine import _attn_only
     jcfg, cfg = _port_config(arch)
-    assert _attn_only(cfg) == jattn_only(jcfg) == (arch == "llama3.2-3b")
+    assert _attn_only(cfg) == jattn_only(jcfg) == (arch in ATTN_ONLY)
     stub = types.SimpleNamespace(cfg=cfg, plan=None, quant_state=None,
                                  device=torch.device("cpu"))
     eng = ServeEngine(stub, max_batch=1, max_len=32, prefix_reuse=True)
