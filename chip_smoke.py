@@ -24,13 +24,17 @@ which fails the run on any error:
            projection shapes (4,096 -> 4,096 / 14,336 / 65,536 and 14,336
            -> 4,096) at M = 1, 2, 4, 8, 16, 32 and 64, whisper-medium's
            three (1,024 -> 1,024 / 4,096 and 4,096 -> 1,024) at M = 4, 8
-           and 1,500, and granite-moe-3b-a800m's two (1,536 -> 1,536 / 512)
-           at M = 1, 2, 3, 4, 16 and 64, exact and at the
+           and 1,500, granite-moe-3b-a800m's two (1,536 -> 1,536 / 512)
+           at M = 1, 2, 3, 4, 16 and 64, and jamba-v0.1-52b's four new
+           ones (4,096 -> 16,384 / 1,024, 8,192 -> 288 / 4,096; ``x_proj``'s
+           288 ends K1's 128-column blocks on a ragged 32) at M = 1, 2, 3,
+           4, 16 and 64, exact and at the
            float bar with equal ops; times of the whole call (both passes)
            at M = 4, 16, 64 and that prefill (on rwkv6's shapes, at those
            phase 11's trace gives the kernel, ``RWKV_PATH``; on whisper's,
            at phase 12's, ``WHISPER_PATH``; on granite's, at phase 13's,
-           ``GRANITE_PATH``) beside the
+           ``GRANITE_PATH``; on jamba's, at phase 14's, ``JAMBA_PATH``)
+           beside the
            bound (bf16 weights read at 2 bytes each): the device time (20
            launches, each after an L2 flush, replayed as one CUDA graph,
            less the flushes), the time of one call as a caller sees it,
@@ -78,6 +82,7 @@ which fails the run on any error:
            prefill and the ragged tiles), rwkv6-7b's four projection shapes
            at M = 1, 2, 4, 8, 16, 32 and 64, whisper-medium's three at M =
            4, 8 and 1,500, granite-moe-3b-a800m's two at M = 1, 2, 3, 4, 16
+           and 64, jamba-v0.1-52b's four new ones at M = 1, 2, 3, 4, 16
            and 64, ragged 3 x 300 x 130, and one
            shape with k_i = k_w = 4 (the general body), with the default
            registers, a fractional step and the lossless mode: op counts
@@ -88,7 +93,8 @@ which fails the run on any error:
            k_i k_w G u |y| (u = 2^-24) of the f64 control; each kernel
            body's shapes (the wrapper's shape plan) are printed; timed at
            M = 4, 16 and 64 (on rwkv6's shapes, at phase 11's; on
-           whisper's, at phase 12's; on granite's, at phase 13's) beside the
+           whisper's, at phase 12's; on granite's, at phase 13's; on
+           jamba's, at phase 14's) beside the
            bound (packed bytes at 3.35 TB/s or
            the 0/1 products at the card's one-bit tensor-core rate,
            ``B1_OPS_PER_S``) and ``torch._int_mm`` on the unpacked int8 0/1
@@ -217,11 +223,43 @@ which fails the run on any error:
            prefill batches): the same experts for every token whose k-th
            and (k+1)-th probabilities differ by more than 1e-6, output
            within 2e-2 relative L2.
+14. jamba  jamba-v0.1-52b at every published width (d=4,096, 32 query
+           and 8 KV heads of 128, d_inner 8,192, d_state 16, d_conv 4,
+           dt_rank 256, 16 experts of d_ff 14,336, top-2, vocab 65,536,
+           an untied ``lm_head``; bf16, seeded random weights), cut to 16
+           of its 32 layers (two of the four 8-layer periods: 14 mamba and
+           2 attention layers, 8 MLP and 8 MoE; 26.05 B parameters, the
+           whole model would not fit one card), on the prepared ``pallas``
+           datapath, then on ``bit_exact``, through the paged engine on
+           phase 3's trace asked for prefix reuse, which a hybrid keeps
+           off (0 tokens reused).  Every forward (prefill, decode step)
+           launches K1 (then K3) 75 times (14 x 3 mamba, 2 x 4 attention,
+           8 x 3 MLP projections and the ``lm_head``; the experts and the
+           router are plain torch); every request's A/D ops equal the
+           closed form (25,030,656 conversions a token row, 22,933,504 a
+           prefill row that stops before the ``lm_head``, over the 64-row
+           bucket and the request's share of each decode step's 4 rows; 7
+           ops each, 64 bit-line conversions each on ``bit_exact``); only
+           the attention layers hold pages, the mamba state stays in the
+           slots; every logit finite.  Checks: the chunked selective scan
+           against the per-token step at the model's widths over 1,024
+           tokens (four chunks carrying h) and layer 0's mixer on
+           ``exact`` (a 64-token prefill against 64 single-token steps:
+           outputs, ``h`` and ``conv``) within 1e-4 relative L2; layer 1's
+           MoE against f64 (phase 13's bars); a full-width prefill on
+           ``fake_quant`` against ``pallas`` at the phase-4 bar (how deep
+           the per-depth gate reaches is printed), and on ``bit_exact``
+           through K3's plain version at the phase-7 bar.  Readings:
+           tokens/s and mean TTFT, the memory after compile and the
+           phase's peak, one batch-4 decode step and one 64-token prefill
+           (host clock) and their ``torch.profiler`` split (K1/K3, the
+           rest of the projections, attention, the ``ssm`` span: conv,
+           coefficients and scan; the ``moe`` span; device-idle share).
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
-12 and 13 for K1, phases 7, 11, 12 and 13 for K3, the calibration of phase 8
-for both of K2's entries) and read just after; launches that compare a
-kernel with its plain version do not count.
+12, 13 and 14 for K1, phases 7, 11, 12, 13 and 14 for K3, the calibration
+of phase 8 for both of K2's entries) and read just after; launches that
+compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -312,6 +350,26 @@ GRANITE_MS = (1, 2, 3, 4, 16, 64)
 # the rows phase 13's trace gives K1 and K3, where both are timed
 GRANITE_PATH = sorted((m, k, n) for m in (4, 16, 64) for k, n in GRANITE_KN)
 GRANITE_ROW = 11_010_048           # pallas A/D ops of a token row (7 each)
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 16                  # two of the four 8-layer periods
+# (K, N) of in_proj, x_proj, out_proj and wk/wv: the shapes jamba adds
+# (wq/wo 4,096 -> 4,096, the MLP's and the lm_head's are rwkv6's)
+JAMBA_KN = ((4096, 16384), (8192, 288), (8192, 4096), (4096, 1024))
+# phases 2 and 6: rows checked at jamba's new shapes (1-4: decode, 16: the
+# TMA body's last M, 64: the trace's bucket)
+JAMBA_MS = (1, 2, 3, 4, 16, 64)
+# the shapes phase 14's trace gives K1 and K3, where both are timed: every
+# projection at the batch-4 decode step and the 64-token prefill, the
+# lm_head on the decode step and on the prefill's last row
+JAMBA_PATH = sorted({(m, k, n) for m in (4, 64) for k, n in
+                     JAMBA_KN + ((4096, 4096), (4096, 14336), (14336, 4096))}
+                    | {(1, 4096, 65536), (4, 4096, 65536)})
+# K1 (K3) launches a forward: 14 x 3 mamba, 2 x 4 attention, 8 x 3 MLP
+# projections and the lm_head (the experts and the router are plain torch)
+JAMBA_LAUNCHES = 75
+JAMBA_ROW = 25_030_656             # conversions of a row through all 75
+JAMBA_PREFILL_ROW = 22_933_504     # ... of a prefill row (no lm_head)
+JAMBA_SCAN_LEN = 1024              # phase 14: four 256-token chunks
 ROUTER_MARGIN = 1e-6               # phase 13: k-th less (k+1)-th probability
 ROUTER_REL_BAR = 2e-2              # phase 13: bf16 MoE layer against f64
 WKV_TOL = 1e-4                     # phase 11: scan against recurrence
@@ -484,6 +542,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases += [((m, k, n), default) for m, k, n in WHISPER_PATH]
     cases += [((m, k, n), default) for m in GRANITE_MS
               for k, n in GRANITE_KN]
+    cases += [((m, k, n), default) for m in JAMBA_MS for k, n in JAMBA_KN]
     cases += [((3, 300, 130), default), (TMA_RAGGED, default)]
     cases += [(shape, r) for shape in ((64, 3072, 1024), (3, 300, 130))
               for r in R1_REGS]
@@ -511,7 +570,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     log(f"  exact: {n_exact} integer cases (M in {K1_MS} at llama's four "
         f"projection shapes, M in {RWKV_MS} at rwkv6's four, M in "
         f"{WHISPER_MS} at whisper's three, M in {GRANITE_MS} at granite's "
-        f"two, 3x300x130 and "
+        f"two, M in {JAMBA_MS} at jamba's four, 3x300x130 and "
         f"{TMA_RAGGED}; bf16 and f32 weights; registers "
         f"given and auto-ranged): y bitwise equal, ops equal")
 
@@ -526,6 +585,9 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
               for m, k, n in WHISPER_PATH for auto in (False, True)]
     cases += [((m, k, n), default, torch.bfloat16, auto)
               for m in GRANITE_MS for k, n in GRANITE_KN
+              for auto in (False, True)]
+    cases += [((m, k, n), default, torch.bfloat16, auto)
+              for m in JAMBA_MS for k, n in JAMBA_KN
               for auto in (False, True)]
     cases += [((64, 3072, 1024), r, torch.bfloat16, True) for r in R1_REGS]
     cases += [(shape, default, wdt, True) for wdt in wdtypes
@@ -582,7 +644,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
             raise AssertionError("K1 outside the float bar:" + line)
         if ((k, n) in PROJ_KN and m in K1_TIMED_MS or (m, k, n) in
                 RWKV_PATH or (m, k, n) in WHISPER_PATH or (m, k, n) in
-                GRANITE_PATH) and auto and \
+                GRANITE_PATH or (m, k, n) in JAMBA_PATH) and auto and \
                 wdt == torch.bfloat16 and rk is default:
             kern = lambda: trq_group_mvm_cuda(a, w, s, **kw)  # noqa: E731
             ms = device_ms(torch, kern, 20, flush)
@@ -751,12 +813,18 @@ def forward_times(torch, rt, prompt, batch: int = TRACE_BATCH,
 
 @contextlib.contextmanager
 def labelled_spans(torch):
-    """Wrap the port's projection, auto-range pre-fit, attention, WKV and
-    norm functions in ``torch.profiler.record_function`` spans, so a trace
+    """Wrap the port's projection, auto-range pre-fit, attention, WKV,
+    mamba (``ssm``: the conv, the coefficients after ``x_proj`` and the
+    scan or step) and norm functions in ``torch.profiler.record_function``
+    spans, so a trace
     can attribute device time to them (the package itself carries no
     spans).  A function the package does not have (the pre-fit after it
     was folded into K1) is left out."""
     from repro_torch.models import attention, encdec, layers, moe, rwkv6
+    try:
+        from repro_torch.models import mamba
+    except ImportError:           # a checkout older than the mamba mixer
+        mamba = None
     from repro_torch.pim import plan
     from repro_torch.serve import kvcache
     targets = [(layers, "pim_linear", "projections"),
@@ -772,6 +840,10 @@ def labelled_spans(torch):
                (kvcache.PagedKVCache, "write_blocks", "write-back"),
                (rwkv6, "wkv_scan", "wkv"),
                (rwkv6, "wkv_step", "wkv"),
+               (mamba, "causal_conv", "ssm"),
+               (mamba, "ssm_coeffs", "ssm"),
+               (mamba, "ssm_scan", "ssm"),
+               (mamba, "ssm_step", "ssm"),
                (rwkv6, "head_norm", "norm"),
                (layers, "rmsnorm", "norm"),
                (layers, "layernorm", "norm")]
@@ -825,7 +897,8 @@ def profile_forward(torch, fn) -> dict:
             wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
     labels = ("projections", "pre-fit", "attention", "wkv", "norm",
-              "cross-attention", "encoder", "assemble", "write-back", "moe")
+              "cross-attention", "encoder", "assemble", "write-back", "moe",
+              "ssm")
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and e.name not in labels             # the spans' device mirrors
            and not getattr(e, "is_user_annotation", False)]
@@ -888,8 +961,8 @@ def profile_one(torch, key: str, fn) -> dict:
         f"ms, attention {p['attention_ms']:.2f} ms, wkv "
         f"{p['wkv_ms']:.2f} ms, norms {p['norm_ms']:.2f} ms"
         + "".join(f", {k} {p[k + '_ms']:.2f} ms" for k in (
-            "cross-attention", "encoder", "assemble", "write-back", "moe")
-            if p[k + "_ms"]))
+            "cross-attention", "encoder", "assemble", "write-back", "moe",
+            "ssm") if p[k + "_ms"]))
     for t in p["top_kernels"]:
         log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
     return p
@@ -1380,6 +1453,7 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases += [(m, k, n, 8) for m in RWKV_MS for k, n in RWKV_KN]
     cases += [(m, k, n, 8) for m, k, n in WHISPER_PATH]
     cases += [(m, k, n, 8) for m in GRANITE_MS for k, n in GRANITE_KN]
+    cases += [(m, k, n, 8) for m in JAMBA_MS for k, n in JAMBA_KN]
     cases += [(3, 300, 130, 8), K3_NARROW]
     for (m, k, n, bits) in cases:
         a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev, bits)
@@ -1425,7 +1499,8 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
             if name == "default" and bits == 8 and (
                     (k, n) in PROJ_KN and m in K3_TIMED_MS or
                     (m, k, n) in RWKV_PATH or (m, k, n) in WHISPER_PATH
-                    or (m, k, n) in GRANITE_PATH):
+                    or (m, k, n) in GRANITE_PATH
+                    or (m, k, n) in JAMBA_PATH):
                 kw_main = dict(kw, per_output=False)
                 kern = lambda: k3.xbar_mvm_cuda(  # noqa: E731
                     a_mask, w_mask, s, **kw_main)
@@ -2496,10 +2571,11 @@ def granite_trace(torch, rt, counter, kname: str, slices: int,
                 tokens=[list(r.generated) for r in done])
 
 
-def router_check(torch, rt, device: str = "cuda") -> dict:
-    """Layer 0's MoE as compiled (bf16) on the card against the same layer
-    cast to f64, on the card, at a batch-4 decode step (4 groups of one
-    token) and a batch-4 64-token prefill (4 groups of 64, capacity 16):
+def router_check(torch, rt, device: str = "cuda", depth: int = 0) -> dict:
+    """The MoE of the layer at ``depth`` as compiled (bf16) on the card
+    against the same layer cast to f64, on the card (made leaf by leaf, so
+    no second bf16 copy is held on the way), at a batch-4 decode step (4
+    groups of one token) and a batch-4 64-token prefill (4 groups of 64):
     seeded N(0, 1) inputs rounded to bf16, the layer's input dtype.  The
     two runs pick the same experts for every token whose k-th and
     (k+1)-th f64 probabilities differ by more than ``ROUTER_MARGIN`` (f32
@@ -2507,11 +2583,12 @@ def router_check(torch, rt, device: str = "cuda") -> dict:
     reduced precision would move them by about 1e-3), and the outputs lie
     within ``ROUTER_REL_BAR`` in relative L2 (bf16 activations between the
     expert products: a few roundings of 2^-9 each)."""
-    import copy
     from repro_torch.models import moe
     cfg = rt.cfg
-    layer = rt.model.layers[0].moe
-    ref = copy.deepcopy(layer).double()
+    layer = rt.model.layers[depth].moe
+    ref = moe.MoE(cfg, torch.float64, device="meta")
+    ref.load_state_dict({k: v.double() for k, v in
+                         layer.state_dict().items()}, assign=True)
     k = cfg.experts_per_token
     gen = torch.Generator(device=device).manual_seed(13)
     out = {}
@@ -2541,7 +2618,7 @@ def router_check(torch, rt, device: str = "cuda") -> dict:
             f"{rel:.3e} (bar {ROUTER_REL_BAR:.0e})")
         if not bool(same[clear].all()) or rel > ROUTER_REL_BAR or \
                 not out[label]["finite"]:
-            raise AssertionError(f"granite: the MoE layer on the card "
+            raise AssertionError(f"{cfg.name}: the MoE layer on the card "
                                  f"disagrees with f64 ({label})")
     del ref
     return out
@@ -2601,6 +2678,252 @@ def granite_phase(torch, rec1: dict, rec3: dict, cfg,
         rec["launches_by_path"][GRANITE_ARCH] = runs[backend]["launches"]
     out.update(runs)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: full-width jamba-v0.1-52b, two of its four periods
+# ---------------------------------------------------------------------------
+
+def jamba_conversions(cfg):
+    """(conversions of a token row through every projection and the
+    ``lm_head``, of a prefill row that stops before the ``lm_head``): N x
+    ceil(K/128) per projection, from the config."""
+    def g(k):
+        return -(-k // 128)
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    di, ds = cfg.ssm_expand * d, cfg.ssm_d_state
+    per = {"mamba": 2 * di * g(d) + (max(d // 16, 1) + 2 * ds) * g(di)
+           + d * g(di),
+           "attn": (cfg.n_heads + 2 * cfg.n_kv_heads) * hd * g(d)
+           + d * g(cfg.n_heads * hd),
+           "mlp": 2 * f * g(d) + d * g(f), "moe": 0}
+    prefill = sum(per[mixer] + per[ffn] for mixer, ffn in (
+        cfg.layer_kind(i % cfg.period) for i in range(cfg.n_layers)))
+    return prefill + cfg.vocab_size * g(d), prefill
+
+
+def jamba_config():
+    from repro_torch.models.registry import get_config
+    cfg = get_config(JAMBA_ARCH).replace(n_layers=JAMBA_LAYERS,
+                                         param_dtype="bfloat16",
+                                         pim_backend="pallas", remat="none")
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.ssm_expand * cfg.d_model, cfg.ssm_d_state, cfg.ssm_d_conv,
+            cfg.d_ff, cfg.n_experts, cfg.experts_per_token, cfg.vocab_size,
+            cfg.tie_embeddings, cfg.ssm_chunk) == (
+                4096, 32, 8, 128, 8192, 16, 4, 14336, 16, 2, 65536, False,
+                256)
+    assert jamba_conversions(cfg) == (JAMBA_ROW, JAMBA_PREFILL_ROW)
+    return cfg
+
+
+def jamba_trace(torch, rt, counter, kname: str, slices: int) -> dict:
+    """Phase 3's trace (:func:`trace_prompts`: 8 requests, a shared
+    48-token prefix plus a 16-token tail, 16 new tokens, max batch 4,
+    pages of 16, greedy) through the paged engine asked for prefix reuse,
+    with ``counter.LAUNCHES`` set to 0 just before and read just after.
+    Fails unless the engine kept reuse off and reused no token, every
+    forward (prefill and decode step) launched the kernel once per
+    planned projection (``len(rt.plan)``), every logit was finite, every
+    request's A/D ops equal the closed form (7 ops a conversion,
+    ``slices`` conversions per group and output; the bucket's rows, pads
+    included, through every projection but the ``lm_head``, the last row
+    through it, and the request's share of each decode step's
+    ``TRACE_BATCH`` rows), every request got 16 in-vocab tokens, and only
+    the attention layers held pages (the mamba layers' ``h`` and ``conv``
+    stay in the slots)."""
+    from repro_torch.serve import ServeEngine
+    cfg = rt.cfg
+    eng = ServeEngine(rt, max_batch=TRACE_BATCH, max_len=256,
+                      block_size=16, prefix_reuse=True)
+    kinds = [cfg.layer_kind(i % cfg.period)[0] for i in range(cfg.n_layers)]
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    paged_ok = (not eng.prefix_reuse and eng.kv.specs == ("k", "v")
+                and all(p.shape[1] == n_attn for p in eng.kv.pools.values())
+                and sorted(eng.state_cache) == ["conv", "h", "len"]
+                and eng.state_cache["h"].shape[0] == n_mamba
+                and eng.state_cache["conv"].shape[0] == n_mamba)
+    prompts = trace_prompts(cfg)
+    with launches_per_call(torch, rt, counter) as calls:
+        counter.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=16)
+        done = sorted(eng.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counter.LAUNCHES
+    st = eng.stats()
+    per_conv = 7 * slices
+    row, prefill_row = jamba_conversions(cfg)
+    ok = len(done) == len(prompts)
+    per_req = []
+    for r, share in zip(done, decode_shares(len(prompts), TRACE_BATCH, 16)):
+        pre = per_conv * (prefill_row * bucket(len(r.prompt), 256)
+                          + row - prefill_row)
+        want = pre + per_conv * row * TRACE_BATCH * share
+        ok = ok and r.prefill_ad_ops == pre and r.ad_ops == want and \
+            len(r.generated) == 16 and all(
+                0 <= t < cfg.vocab_size for t in r.generated)
+        per_req.append(r.ad_ops)
+        log(f"  req {r.uid}: reused {r.reused_tokens} prompt tokens, ttft "
+            f"{1e3 * (r.first_token_t - r.submit_t):.1f} ms, ad_ops "
+            f"{r.ad_ops:.0f} (closed form {want:.0f}; prefill "
+            f"{r.prefill_ad_ops:.0f}, closed form {pre}), tokens "
+            f"{list(r.generated)}")
+    forwards = len(calls["prefill"]) + len(calls["decode"])
+    pages = -(-(bucket(len(prompts[0]), 256) + 15) // 16)
+    peak = st["paged"]["peak_pages_in_use"]
+    log(f"  served {st['requests']} requests, {st['decode_tokens']} tokens "
+        f"in {wall:.2f} s: {st['tokens_per_s']:.2f} tok/s, mean ttft "
+        f"{1e3 * st['mean_ttft_s']:.1f} ms, total ad_ops "
+        f"{st['total_ad_ops']:.0f} ({row} conversions a token row); "
+        f"{kname} launches {launches} over {forwards} forwards, "
+        f"{sorted(set(calls['prefill'] + calls['decode']))} each "
+        f"({len(rt.plan)} planned projections); reused prompt tokens "
+        f"{st['reused_prompt_tokens']} (reuse asked for, kept "
+        f"{'on' if eng.prefix_reuse else 'off'}); pools hold {n_attn} "
+        f"attention layers, slots {n_mamba} mamba layers' h and conv; peak "
+        f"pages {peak} ({TRACE_BATCH} x {pages} expected); logits finite "
+        f"{calls['finite']}")
+    if set(calls["prefill"] + calls["decode"]) != {len(rt.plan)} or \
+            launches != len(rt.plan) * forwards:
+        raise AssertionError(f"jamba: {kname} launches per forward off "
+                             f"{len(rt.plan)}")
+    if not paged_ok or st["reused_prompt_tokens"] != 0 or \
+            peak != TRACE_BATCH * pages:
+        raise AssertionError("jamba: reuse served tokens, or pages held "
+                             "other than the attention layers' rows")
+    if not ok or not calls["finite"]:
+        raise AssertionError("jamba: A/D ops per request off the closed "
+                             "form, tokens missing or logits not finite")
+    return dict(tokens_per_s=st["tokens_per_s"],
+                mean_ttft_ms=1e3 * st["mean_ttft_s"],
+                total_ad_ops=st["total_ad_ops"], ad_ops_per_request=per_req,
+                forwards=forwards, launches=launches, wall_s=wall,
+                peak_pages=peak, tokens=[list(r.generated) for r in done])
+
+
+def ssm_check(torch, rt, device: str = "cuda") -> dict:
+    """The chunked selective scan is the per-token step: at the model's
+    widths (B = 1, d_inner, d_state) over ``JAMBA_SCAN_LEN`` tokens (four
+    chunks of ``ssm_chunk`` carrying h) on seeded f32 inputs (delta a
+    softplus around the init's dt range, x, B and C standard normal, A
+    from layer 0's ``a_log``), from a zero and a warm h; and layer 0's
+    mixer on the ``exact`` datapath in f32: one 64-token prefill against
+    64 single-token steps from the zero cache.  Relative L2 of the
+    outputs, the final ``h`` and ``conv`` within ``WKV_TOL``."""
+    from repro_torch.models import mamba
+    from repro_torch.models.layers import PimContext
+    cfg = rt.cfg
+    mix = rt.model.layers[0].mamba
+    di, ds = mamba.d_inner(cfg), cfg.ssm_d_state
+    s = JAMBA_SCAN_LEN
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    delta = mamba.softplus(randn(1, s, di) - 3.0)
+    xc, b_, c_ = randn(1, s, di), randn(1, s, ds), randn(1, s, ds)
+    a_neg = torch.exp(mix.a_log)
+    errs = {}
+    for label, h0 in (("zero", torch.zeros(1, di, ds, device=device)),
+                      ("warm", randn(1, di, ds))):
+        y, h_end = mamba.ssm_scan(delta, xc, b_, c_, a_neg, h0,
+                                  cfg.ssm_chunk)
+        h, ys = h0, []
+        for t in range(s):
+            y1, h = mamba.ssm_step(delta[:, t], xc[:, t], b_[:, t],
+                                   c_[:, t], a_neg, h)
+            ys.append(y1)
+        errs[f"scan_{label}_out"] = rel_l2(y, torch.cat(ys, 1))
+        errs[f"scan_{label}_h"] = rel_l2(h_end, h)
+    del delta, xc, y, ys
+
+    ctx = PimContext(cfg.replace(dtype="float32"), "exact", device=device)
+    x = randn(1, 64, cfg.d_model)
+    zero = {"h": torch.zeros(1, di, ds, device=device),
+            "conv": torch.zeros(1, cfg.ssm_d_conv - 1, di, device=device)}
+    with torch.no_grad():
+        y, c_pre = mix(x, ctx, cache=zero)
+        c, ys = zero, []
+        for t in range(x.shape[1]):
+            y1, c = mix(x[:, t:t + 1], ctx, cache=c)
+            ys.append(y1)
+    errs["mix_out"] = rel_l2(y, torch.cat(ys, 1))
+    errs["mix_h"] = rel_l2(c_pre["h"], c["h"])
+    errs["mix_conv"] = rel_l2(c_pre["conv"], c["conv"])
+    log(f"  chunked scan against the step ({s} tokens, d_inner {di}, "
+        f"d_state {ds}, chunk {cfg.ssm_chunk}) and layer 0's mixer (64 "
+        f"tokens, exact, f32): relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bar {WKV_TOL:.0e})")
+    if max(errs.values()) > WKV_TOL:
+        raise AssertionError("jamba: the chunked scan and the step "
+                             "disagree")
+    return errs
+
+
+def jamba_phase(torch, rec1: dict, rec3: dict, cfg,
+                device: str = "cuda") -> dict:
+    """jamba-v0.1-52b at ``cfg`` on ``pallas`` through K1, then on
+    ``bit_exact`` through K3 (see the module docstring, phase 14)."""
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+
+    torch.cuda.reset_peak_memory_stats()
+    rt, gib = compile_pallas(torch, cfg, device)
+    n_params = sum(t.numel() for t in rt.model.state_dict().values())
+    row = planned_conversions(rt.model)
+    log(f"  cut: {cfg.n_layers} of 32 layers ({cfg.n_layers // cfg.period} "
+        f"of the 4 periods), every width as published; "
+        f"{n_params / 1e9:.3f} B parameters, {gib:.2f} GiB after compile; "
+        f"{len(rt.plan)} planned projections, {row} conversions a token "
+        f"row ({7 * row} A/D ops on pallas)")
+    if len(rt.plan) != JAMBA_LAUNCHES or \
+            row != jamba_conversions(cfg)[0]:
+        raise AssertionError(f"jamba: {len(rt.plan)} layer plans and {row} "
+                             f"conversions a row, not {JAMBA_LAUNCHES} and "
+                             f"{jamba_conversions(cfg)[0]}")
+    prompt = trace_prompts(cfg)[0]
+    out = dict(n_layers=cfg.n_layers, params=n_params,
+               gib_after_compile=gib)
+    out["scan"] = ssm_check(torch, rt, device)
+    out["router"] = router_check(torch, rt, device, depth=1)
+    runs = {}
+    for backend, counter, kname, slices in (("pallas", k1, "K1", 1),
+                                            ("bit_exact", k3, "K3",
+                                             SLICES)):
+        if backend == "bit_exact":
+            t0 = time.perf_counter()
+            rt = rt.with_overrides(backend="bit_exact")
+            torch.cuda.synchronize()
+            log(f"  programmed {len(rt.plan)} bit_exact layer plans in "
+                f"{time.perf_counter() - t0:.1f} s; "
+                f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+                f"allocated")
+            warm(rt)
+        run = runs[backend] = jamba_trace(torch, rt, counter, kname, slices)
+        run.update(forward_times(torch, rt, prompt))
+        log(f"  {backend}: one decode step (batch {TRACE_BATCH}) "
+            f"{run['decode_step_ms']:.1f} ms, one 64-token prefill "
+            f"{run['prefill64_ms']:.1f} ms")
+        run["profile"] = profile_forwards(torch, rt, prompt)
+        if backend == "pallas":
+            log("  a full-width prefill, fake_quant against pallas (the "
+                "phase-4 bar)")
+            out.update(fake_quant_check(torch, rt, prompt, 256))
+            log(f"  the per-depth gate reaches depth "
+                f"{max(out['depth_bar'])} of {sorted(out['depth_rel_l2'])}")
+        else:
+            run.update(plain_k3_check(torch, rt, prompt, 256))
+    for rec, backend in ((rec1, "pallas"), (rec3, "bit_exact")):
+        rec["launches_by_path"][JAMBA_ARCH] = runs[backend]["launches"]
+    out.update(runs)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak {out['peak_gib']:.2f} GiB allocated in the phase")
     return out
 
 
@@ -2716,6 +3039,15 @@ def main(argv) -> int:
     t13 = time.perf_counter()
     granite = granite_phase(torch, rec, rec3, granite_config())
     granite["phase_s"] = time.perf_counter() - t13
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14: serve full-width {JAMBA_ARCH} ({JAMBA_LAYERS} layers) "
+        f"on pallas and bit_exact "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated)")
+    t14 = time.perf_counter()
+    jamba = jamba_phase(torch, rec, rec3, jamba_config())
+    jamba["phase_s"] = time.perf_counter() - t14
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -2741,6 +3073,7 @@ def main(argv) -> int:
     log(json.dumps({"rwkv6": rwkv}))
     log(json.dumps({"whisper": whisper}))
     log(json.dumps({"granite": granite}))
+    log(json.dumps({"jamba": jamba}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())

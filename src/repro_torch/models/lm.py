@@ -1,6 +1,7 @@
 """Decoder-only LM: the dense GQA decoder, the MoE decoder (an expert FFN
-in place of the MLP, or beside it with a dense residual) and the
-attention-free rwkv6 decoder of ``repro.models.lm``.
+in place of the MLP, or beside it with a dense residual), the
+attention-free rwkv6 decoder and the mamba/attention hybrid (jamba) of
+``repro.models.lm``.
 
 The reference scans the layer stack over periods; the port runs a Python
 loop over ``layers``.  The cache is one dict of tensors, each stacked over
@@ -8,9 +9,11 @@ the layers that hold it::
 
     {"k": (La, B, S, KV, hd), "v": (La, B, S, KV, hd), "len": (B,) int32}
     {"s": (Lr, B, H, hs, hs) f32, "x_prev": (Lr, B, 1, D)}
+    {"h": (Lm, B, di, ds) f32, "conv": (Lm, B, dc-1, di)}
 
-with ``La`` attention layers and ``Lr`` rwkv layers; a model has only the
-leaves of the mixers it holds.  ``k``/``v`` scale with ``max_len`` (the
+with ``La`` attention layers, ``Lr`` rwkv layers and ``Lm`` mamba layers;
+a model has only the leaves of the mixers it holds (jamba has both K/V
+and mamba state).  ``k``/``v`` scale with ``max_len`` (the
 paged leaves, ``PAGED_KEYS``); the rest are O(1) per sequence.
 
 Modes: train | prefill | prefill_cont | decode.  Serving modes return only
@@ -28,13 +31,17 @@ from ..configs.base import ModelConfig
 from .attention import Attention
 from .layers import (MLP, Embed, PimContext, PimLinear, RMSNorm, cdtype,
                      pdtype)
+from .mamba import MambaMixer, d_inner
 from .moe import MoE
 from .rwkv6 import RWKV6TimeMix, dims as rwkv_dims
 
 LAYER_KINDS = (("attn", "mlp"), ("attn", "moe"), ("attn", "moe+mlp"),
-               ("rwkv", "mlp"))
+               ("rwkv", "mlp"), ("mamba", "mlp"), ("mamba", "moe"))
 PAGED_KEYS = ("k", "v")         # cache leaves that scale with max_len
 STATIC_KEYS = ()                # none is written at prefill only
+# each mixer's cache leaves, stacked over the layers of that mixer
+STATE_KEYS = {"attn": PAGED_KEYS, "rwkv": ("s", "x_prev"),
+              "mamba": ("h", "conv")}
 
 
 def layer_name(cfg: ModelConfig, depth: int) -> str:
@@ -61,6 +68,8 @@ class DecoderLayer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, device=device)
         if self.mixer == "attn":
             self.attn = Attention(cfg, f"{lname}/attn", dtype, device)
+        elif self.mixer == "mamba":
+            self.mamba = MambaMixer(cfg, f"{lname}/mamba", dtype, device)
         else:
             self.rwkv = RWKV6TimeMix(cfg, f"{lname}/rwkv", dtype, device)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
@@ -76,6 +85,8 @@ class DecoderLayer(nn.Module):
         if self.mixer == "attn":
             o, new_cache = self.attn(h, ctx, positions, cache=cache,
                                      cont=cont)
+        elif self.mixer == "mamba":
+            o, new_cache = self.mamba(h, ctx, cache=cache)
         else:
             o, new_cache = self.rwkv(h, ctx, cache=cache)
         x = x + o
@@ -92,10 +103,11 @@ class DecoderLayer(nn.Module):
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "ssm") \
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
                 or cfg.frontend != "none" or cfg.encoder_layers:
-            raise NotImplementedError(f"{cfg.name}: only the dense, the MoE "
-                                      f"and the rwkv6 decoders are ported")
+            raise NotImplementedError(f"{cfg.name}: only the dense, the "
+                                      f"MoE, the rwkv6 and the hybrid "
+                                      f"decoders are ported")
         self.cfg = cfg
         dt = pdtype(cfg)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, device)
@@ -128,14 +140,12 @@ class LM(nn.Module):
                                          device=x.device)[None].expand(b, s)
         stacks: dict = {}
         new_len = None
-        index = {"attn": 0, "rwkv": 0}      # depth among the same mixers
+        index = dict.fromkeys(STATE_KEYS, 0)  # depth among the same mixers
         for layer in self.layers:
             lc = None
             if cache is not None:
                 i = index[layer.mixer]
-                lc = {key: cache[key][i] for key in
-                      (PAGED_KEYS if layer.mixer == "attn"
-                       else ("s", "x_prev"))}
+                lc = {key: cache[key][i] for key in STATE_KEYS[layer.mixer]}
                 if layer.mixer == "attn":
                     lc["len"] = cache["len"]
             index[layer.mixer] += 1
@@ -169,7 +179,8 @@ def paged_keys(cfg: ModelConfig) -> tuple:
 def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
                device=None) -> dict:
     """The zeroed cache leaves that do not scale with ``max_len``: ``len``
-    for attention layers, ``s`` and ``x_prev`` for rwkv layers."""
+    for attention layers, ``s`` and ``x_prev`` for rwkv layers, ``h`` and
+    ``conv`` for mamba layers."""
     kinds = mixers(cfg)
     out = {}
     if "attn" in kinds:
@@ -181,13 +192,20 @@ def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
                                dtype=torch.float32, device=device)
         out["x_prev"] = torch.zeros((n_rwkv, batch, 1, cfg.d_model),
                                     dtype=dtype, device=device)
+    n_mamba = kinds.count("mamba")
+    if n_mamba:
+        di = d_inner(cfg)
+        out["h"] = torch.zeros((n_mamba, batch, di, cfg.ssm_d_state),
+                               dtype=torch.float32, device=device)
+        out["conv"] = torch.zeros((n_mamba, batch, cfg.ssm_d_conv - 1, di),
+                                  dtype=dtype, device=device)
     return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Empty cache with only the leaves the model has (bf16 K/V and
-    ``x_prev`` by default, as the reference's)."""
+    """Empty cache with only the leaves the model has (bf16 K/V,
+    ``x_prev`` and ``conv`` by default, as the reference's)."""
     n_attn = mixers(cfg).count("attn")
     out = {}
     if n_attn:

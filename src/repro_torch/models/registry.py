@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> config, model and seeded init
 (the ``llama3.2-3b``, ``rwkv6-7b``, ``whisper-medium``,
-``granite-moe-3b-a800m`` and ``arctic-480b`` slice of
+``granite-moe-3b-a800m``, ``arctic-480b`` and ``jamba-v0.1-52b`` slice of
 ``repro.models.registry``).
 
 The reference's init draws from ``jax.random``, which PyTorch cannot
@@ -11,24 +11,31 @@ LayerNorm scales 1 and biases 0, in f32; the
 rwkv time-mix's leaves as ``repro.models.rwkv6.init_rwkv``; the MoE's as
 ``repro.models.moe.init_moe``: ``w_gate``/``w_up`` N(0, 1) * d**-0.5 and
 ``w_down`` N(0, 1) * d_ff**-0.5 in the parameter dtype, the router
-N(0, 1) * d**-0.5 rounded through the parameter dtype and held in f32), on the
+N(0, 1) * d**-0.5 rounded through the parameter dtype and held in f32; the
+mamba mixer's as ``repro.models.mamba.init_mamba``: ``conv_w`` N(0, 1) *
+d_conv**-0.5 and ``dt_proj`` N(0, 1) * dt_rank**-0.5 in the parameter
+dtype, ``dt_bias = log(expm1(exp(U(log 1e-3, log 1e-1))))``, ``a_log =
+log(1..d_state)`` on every channel and ``d`` ones, in f32), on the
 target device so a full-width model never passes through host memory.
 Parity tests instead load the reference's own weights (``repro_torch.convert``).
 """
 from __future__ import annotations
 
 import importlib
+import math
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .layers import Embed, LayerNorm, PimLinear, RMSNorm, pdtype
+from .mamba import MambaMixer
 from .moe import MoE
 from .rwkv6 import HeadNormAffine, RWKV6TimeMix
 
 ARCHS = ("llama3.2-3b", "rwkv6-7b", "whisper-medium", "granite-moe-3b-a800m",
-         "arctic-480b")
+         "arctic-480b", "jamba-v0.1-52b")
 
 
 def _module_name(arch: str) -> str:
@@ -110,6 +117,22 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             state[pre + "w_gate"] = normal(e, d, f, scale=d ** -0.5)
             state[pre + "w_up"] = normal(e, d, f, scale=d ** -0.5)
             state[pre + "w_down"] = normal(e, f, d, scale=f ** -0.5)
+        elif isinstance(mod, MambaMixer):
+            dc, di = mod.conv_w.shape
+            r, ds = mod.dt_proj.shape[0], mod.a_log.shape[1]
+            conv = torch.randn(dc, di, generator=gen, device=device)
+            state[pre + "conv_w"] = (conv * dc ** -0.5).to(dt)
+            dtp = torch.randn(r, di, generator=gen, device=device)
+            state[pre + "dt_proj"] = (dtp * r ** -0.5).to(dt)
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            u = torch.rand(di, generator=gen, device=device) * (hi - lo) + lo
+            state[pre + "dt_bias"] = torch.log(torch.expm1(torch.exp(u)))
+            # numpy's f32 log rounds log(7) as the reference's does
+            # (torch's one ulp above)
+            a_log = torch.from_numpy(np.log(np.arange(1, ds + 1,
+                                                      dtype=np.float32)))
+            state[pre + "a_log"] = a_log.to(device).expand(di, ds).clone()
+            state[pre + "d"] = torch.ones(di, **f32)
         elif isinstance(mod, HeadNormAffine):
             state[pre + "scale"] = torch.ones(mod.scale.shape[0], **f32)
             state[pre + "bias"] = torch.zeros(mod.bias.shape[0], **f32)

@@ -17,11 +17,14 @@ block pool and per-request attribution of each call's ``AdOpsReport``.
   engine is bitwise-identical to the dense slot engine (``paged=False``),
   kept as the in-port reference.
 * Idle slot rows are zeroed after every step, recurrent state (rwkv
-  ``s``/``x_prev``) included: they ride through batched decode, and their
+  ``s``/``x_prev``, mamba ``h``/``conv``) included: they ride through
+  batched decode, and their
   content would leak into active rows through the dynamic max-abs scales
   of the fake_quant / pallas datapaths.
 * A model with no paged leaf (rwkv6: its cache is O(1) recurrent state)
-  allocates no page and writes no block; prefix reuse is off for it.
+  allocates no page and writes no block; prefix reuse is off for it.  A
+  hybrid (jamba) pages its attention layers' K/V and keeps its mamba
+  state in the slots; prefix reuse is off for it too.
 * Modality inputs come from ``extra_inputs(batch, seq)``, a dict of extra
   batch entries (an encoder-decoder's frames, ``embeds``).  An
   encoder-decoder's prefill gets pages for ``max(prompt bucket, frames)``

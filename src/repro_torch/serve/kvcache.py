@@ -8,10 +8,11 @@ and requests own per-slot block tables of page ids; one table indexes every
 pool.  The cross-KV leaves are static (``static``): written at prefill and
 never by a decode step's write-back.  The rest of the cache is O(1) per
 request and stays slot-resident (the "state" part): the ``len``/``len0``
-counters, and the rwkv ``s``/``x_prev`` recurrent state.  A model with no
-attention layer (rwkv6) has no paged leaf (``specs`` is empty): no pools,
-no pages, no block writes.  The leaves come from the model's own cache
-functions (``models.registry.model_module``).
+counters, and the recurrent state (rwkv's ``s``/``x_prev``, mamba's
+``h``/``conv``).  A model with no attention layer (rwkv6) has no paged
+leaf (``specs`` is empty): no pools, no pages, no block writes; a hybrid
+(jamba) has pools for its attention layers only.  The leaves come from
+the model's own cache functions (``models.registry.model_module``).
 
 Page 0 is permanently zero: block tables are padded with it, so the gather
 materializes exact zeros for unallocated tail pages — what makes paged

@@ -505,3 +505,64 @@ def test_trq_group_mvm_tma_repeats_bit_for_bit_beside_other_work(card):
                 outs = []
         torch.cuda.synchronize()
         assert off == 0, f"{off} of 2000 launches at {k} x {n} off"
+
+
+def _beside_other_work(card, launch, base, n: int = 1000) -> int:
+    """Launches of ``launch()`` (``n`` of them, a second stream running
+    copies and matmuls every 25) whose output differs from ``base``."""
+    side = torch.cuda.Stream()
+    big = torch.empty(64 * 2 ** 20, device=card)
+    mm_a = torch.randn(2048, 2048, device=card)
+    outs, off = [], 0
+    for i in range(n):
+        if i % 25 == 0:
+            with torch.cuda.stream(side):
+                big.mul_(1.0001)
+                torch.mm(mm_a, mm_a)
+        outs.append(launch())
+        if len(outs) == 50:
+            off += sum(not torch.equal(o, base) for o in outs)
+            outs = []
+    torch.cuda.synchronize()
+    return off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_kernels_equal_plain_at_jamba_x_proj(card, m):
+    """jamba's ``x_proj`` (8,192 -> 288: K1's 128-column blocks end on a
+    ragged 32, K3's 32-column blocks on a whole nine) at decode rows:
+    K1 (the TMA body, bf16 weights, auto-ranged) and K3 bit for bit
+    against their plain versions on integer operands, ops equal, and
+    every one of 1,000 launches beside other work equal to the first."""
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
+    k, n = 8192, 288
+    rng = np.random.default_rng(21 + m)
+    a = torch.from_numpy(rng.integers(-8, 9, (m, k)).astype(
+        np.float32)).to(card)
+    w = torch.from_numpy(rng.integers(-8, 9, (k, n)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    p = make_params(delta_r1=1.0, n_r1=6, n_r2=6, m=4, signed=True,
+                    device=card)
+    s = pack_scalars(p, torch.tensor(0.5), card)
+    kw = dict(_regs(p), auto_range=True)
+    y, ops = k1.trq_group_mvm_cuda(a, w, s, **kw)
+    y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_r) and int(ops) == int(ops_r)
+    assert _beside_other_work(
+        card, lambda: k1.trq_group_mvm_cuda(a, w, s, **kw)[0], y) == 0
+
+    a_mask, w_mask = _xbar_operands(rng, card, m, k, n)
+    s3, kw3 = _xbar_kwargs(card, dict(delta_r1=1.0, n_r1=6, n_r2=6, m=4))
+    acc, ops3, per = k3.xbar_mvm_cuda(a_mask, w_mask, s3, per_output=True,
+                                      **kw3)
+    acc_r, ops3_r, per_r = xbar_mvm_ref(a_mask, w_mask, s3,
+                                        per_output=True, **kw3)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_r) and torch.equal(per, per_r)
+    assert int(ops3) == int(ops3_r)
+    assert _beside_other_work(
+        card, lambda: k3.xbar_mvm_cuda(a_mask, w_mask, s3, **kw3)[0],
+        acc) == 0

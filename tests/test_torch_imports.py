@@ -46,7 +46,9 @@ def test_the_walk_sees_the_port():
                 "kernels/trq_quant/ops.py", "kernels/xbar_mvm/ops.py",
                 "telemetry/__init__.py", "telemetry/serve_report.py",
                 "pim/noise.py", "models/rwkv6.py", "configs/rwkv6_7b.py",
-                "models/encdec.py", "configs/whisper_medium.py"):
+                "models/encdec.py", "configs/whisper_medium.py",
+                "models/moe.py", "configs/granite_moe_3b_a800m.py",
+                "models/mamba.py", "configs/jamba_v0_1_52b.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 

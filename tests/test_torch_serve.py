@@ -157,7 +157,8 @@ ATTN_ONLY = ("llama3.2-3b", "granite-moe-3b-a800m", "arctic-480b")
 
 def _port_config(arch):
     """The reference's smoke config of ``arch``, field for field, as a port
-    ``ModelConfig`` (the port's registry holds only llama)."""
+    ``ModelConfig`` (the gate is checked on archs the port's registry does
+    not hold too, internvl2's)."""
     import dataclasses
     from repro_torch.configs.base import ModelConfig, TRQConfig
     jcfg = jget_config(arch, smoke=True)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Stress K3 (``xbar_mvm``) and K1's TMA body for a weight-stage race:
-launch each kernel thousands of times at whisper-medium's shapes while a
-second stream runs copies and matmuls, and count outputs that differ, bit
-for bit, from the first launch's.
+launch each kernel thousands of times at whisper-medium's and jamba's
+``x_proj`` shapes while a second stream runs copies and matmuls, and count
+outputs that differ, bit for bit, from the first launch's.
 
     PYTHONPATH=src python tools/k3_stage_race.py [--k3-source FILE ...] \\
         [--k1-source FILE ...] [--launches 1500] [--rounds 4] \\
@@ -12,12 +12,14 @@ Each ``--k3-source`` (default: the checkout's ``csrc/xbar_mvm.cu``) and
 each ``--k1-source`` (default: ``csrc/trq_group_mvm.cu``) is built with the
 package's nvcc flags into ``$TMPDIR`` and run through the package's
 wrapper, sources alternating round by round.  K3 runs at 1,500 rows
-(1,024 -> 1,024 / 4,096, 4,096 -> 1,024), K1's TMA body at decode rows
-(whisper-medium's and granite-moe-3b-a800m's shapes); each K1 source is
-also timed on the device at llama3.2-3b's decode ``w_gate`` and granite's
-two decode shapes (``chip_smoke.device_ms``: 20 launches, each after an L2
-flush, in one CUDA graph, less the flushes), round by round.  Needs one
-CUDA card and nvcc.
+(1,024 -> 1,024 / 4,096, 4,096 -> 1,024) and at jamba-v0.1-52b's
+``x_proj`` (8,192 -> 288) at 4 and 64 rows, K1's TMA body at decode rows
+(whisper-medium's, granite-moe-3b-a800m's and jamba's ``x_proj``, whose
+288 columns end K1's 128-column blocks on a ragged 32); each K1 source is
+also timed on the device at llama3.2-3b's decode ``w_gate``, granite's
+two decode shapes and jamba's decode ``x_proj`` (``chip_smoke.device_ms``:
+20 launches, each after an L2 flush, in one CUDA graph, less the
+flushes), round by round.  Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -32,11 +34,15 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-K3_SHAPES = [(1500, 4096, 1024), (1500, 1024, 1024), (1500, 1024, 4096)]
+K3_SHAPES = [(1500, 4096, 1024), (1500, 1024, 1024), (1500, 1024, 4096),
+             (4, 8192, 288), (64, 8192, 288)]
 K1_SHAPES = [(4, 1024, 1024), (4, 4096, 1024), (4, 1024, 4096),
-             (8, 4096, 1024), (4, 1536, 1536), (4, 1536, 512)]
-# K1 timed: llama3.2-3b's decode w_gate, granite's decode wq/wo and wk/wv
-K1_TIMED = [(4, 3072, 8192), (4, 1536, 1536), (4, 1536, 512)]
+             (8, 4096, 1024), (4, 1536, 1536), (4, 1536, 512),
+             (1, 8192, 288), (4, 8192, 288), (16, 8192, 288)]
+# K1 timed: llama3.2-3b's decode w_gate, granite's decode wq/wo and wk/wv,
+# jamba's decode x_proj
+K1_TIMED = [(4, 3072, 8192), (4, 1536, 1536), (4, 1536, 512),
+            (4, 8192, 288)]
 
 
 def build_fn(source: Path, tmp: str, symbol: str, argtypes):
