@@ -100,6 +100,12 @@ which fails the run on any error:
            ``B1_OPS_PER_S``) and ``torch._int_mm`` on the unpacked int8 0/1
            planes, (k_i M, K) @ (K, k_w N), as a yardstick (the same
            multiply-adds with no per-group conversion; never on the path);
+           then at every (K, N) of LeNet-5 and ResNet-20 (N as small as 6,
+           K = 25 and 27 in one part-filled group) at M = 1, 4 and one
+           256-image eval batch's M (up to 262,144), lossless, on twin
+           and on ``mode="uniform"`` registers: out, per-output ops and
+           the total bit for bit; timed at the eval M beside the byte and
+           one-bit bounds and ``torch._int_mm``;
 7. bit_exact  full-width llama3.2-3b on the prepared ``bit_exact``
            datapath, the phase-3 trace: every projection of every forward
            launched K3, and the A/D ops equal the closed form (k_i k_w
@@ -255,11 +261,34 @@ which fails the run on any error:
            (host clock) and their ``torch.profiler`` split (K1/K3, the
            rest of the projections, attention, the ``ssm`` span: conv,
            coefficients and scan; the ``moe`` span; device-idle share).
+15. cnn    the paper's evaluation (``benchmarks/*_torch.py``,
+           ``examples/quickstart_torch.py``): LeNet-5 (400 steps) and
+           ResNet-20 (600 steps) trained from the port's seeded init with
+           TF32 off (each one's loss at init and trained is printed);
+           Fig. 3 on LeNet-5; Fig. 6 on both at 8..2 bits (512 images
+           each); Figs. 6c
+           and 7 on both (64 images); quickstart's steps 4 (K2's
+           elementwise entry, bit for bit against ``core.trq.trq_quant``)
+           and 5 (the backend sweep: K1 through ``pallas``, K3 through
+           ``bit_exact``).  Every conv and FC runs K3, every calibration
+           one K2 scoring launch.  Fails unless: the launches are the
+           path's (one scoring launch a calibration, one elementwise, one
+           K1, one K3 a conv or FC layer of each ``pim_forward`` batch and
+           two for the sweep's ``bit_exact`` and ``noisy``); the lossless op total over the images equals the
+           closed form of the real shapes (4,340,736 a LeNet-5 image,
+           239,080,448 a ResNet-20 image); plain scoring picks the same
+           registers on every layer at n_max = 4; K3 on one eval batch of
+           every layer, lossless and calibrated, equals its plain version
+           (out and ops; each layer's largest |acc| and its share at or
+           above 2^24 printed).  Readings: every ``emit`` line, the
+           accuracies, the op ratio against the paper's 1.6-2.3x, the
+           Fig. 7 shares, K3's device ms per CNN layer against its bounds
+           (phase 6), the phase's seconds by stage and its peak memory.
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
 12, 13 and 14 for K1, phases 7, 11, 12, 13 and 14 for K3, the calibration
-of phase 8 for both of K2's entries) and read just after; launches that
-compare a kernel with its plain version do not count.
+of phase 8 for both of K2's entries, phase 15 for all three) and read just
+after; launches that compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -413,6 +442,12 @@ K3_TIMED_MS = (4, 16, 64)          # decode, prefill_cont, prefill
 K3_NARROW = (16, 3072, 1024, 4)    # M, K, N, k_i = k_w: the general body
 BIT_EXACT_REL_BAR = 1e-2           # phase 7: plain vs K3 logits
 CHECKED_DEPTHS = (0, N_LAYERS - 1)  # phase 8: registers printed
+CNN_EVAL_BATCH = 256               # phases 6 and 15: images in an eval batch
+# phase 6 at the CNNs' shapes: lossless, twin and uniform registers
+CNN_K3_REGS = [("lossless", None),
+               ("twin", dict(delta_r1=1.0, n_r1=4, n_r2=4, m=3)),
+               ("uniform", dict(delta_r1=2.5, n_r1=4, n_r2=4, m=0,
+                                mode="uniform"))]
 
 
 def log(*a):
@@ -1351,12 +1386,12 @@ def score_instructions(y, cands) -> dict:
 # ---------------------------------------------------------------------------
 
 def k3_bound(m: int, k: int, n: int, k_i: int = 8, k_w: int = 8):
-    """Least time for one call: the packed activation and weight masks
-    read once and y written once at the HBM rate, or the k_i k_w M K N
-    one-bit multiply-adds (2 operations each) at the one-bit tensor-core
-    rate, whichever is larger."""
-    g = -(-k // 128)
-    byts = 16 * g * (k_i * m + k_w * n) + 4 * m * n + 8
+    """Least time for one call: the k_i activation and k_w weight bits of
+    the K real rows read once (not the zero rows that fill the last
+    128-row group) and y written once at the HBM rate, or the k_i k_w M K
+    N one-bit multiply-adds (2 operations each) at the one-bit
+    tensor-core rate, whichever is larger."""
+    byts = (k_i * m + k_w * n) * k / 8 + 4 * m * n + 8
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * k_i * k_w * m * k * n / B1_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1534,6 +1569,13 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
 # phases 7 and 8: the bit-exact datapath at full width, then Algorithm 1
 # ---------------------------------------------------------------------------
 
+def regs(c):
+    """A calibration's chosen registers, as compared across routes."""
+    p = c.params
+    return (c.chosen, p.mode, p.n_r1, p.n_r2, p.m, p.nu,
+            float(p.delta_r1), float(p.bias))
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route K2 and K3 to their plain versions on the card (the package
@@ -1675,11 +1717,6 @@ def calibrate_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
 
     # -- the main path: every projection calibrated through K2's scoring
     # entry, one launch a layer; each layer's subsample is kept
-    def regs(c):
-        p = c.params
-        return (c.chosen, p.mode, p.n_r1, p.n_r2, p.m, p.nu,
-                float(p.delta_r1), float(p.bias))
-
     k2.LAUNCHES = k2.SCORE_LAUNCHES = 0
     kept, cal, collect_s = {}, {}, 0.0
     t0 = time.perf_counter()
@@ -2927,6 +2964,282 @@ def jamba_phase(torch, rec1: dict, rec3: dict, cfg,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6 at the CNNs' shapes, and phase 15: the paper's evaluation
+# ---------------------------------------------------------------------------
+
+def cnn_k3_shapes(torch) -> dict:
+    """``{(K, N): (eval M, [model/layer, ...])}`` of every crossbar MVM of
+    LeNet-5 and ResNet-20 on one eval batch (``CNN_EVAL_BATCH`` images)."""
+    from repro_torch.models.cnn import LENET5, RESNET20, pim_shapes
+    out: dict = {}
+    for spec in (LENET5, RESNET20):
+        for name, m, k, n in pim_shapes(spec, CNN_EVAL_BATCH):
+            out.setdefault((k, n), (m, []))[1].append(f"{spec.name}/{name}")
+    return out
+
+
+def cnn_k3_phase(torch, rec: dict, device: str = "cuda") -> None:
+    """K3 against its plain version at every (K, N) of the CNNs, at M = 1,
+    4 and one eval batch's M, lossless, on twin registers and on a
+    ``mode="uniform"`` set: outputs, per-output ops and op totals bit for
+    bit (bit-line sums are exact and the plain version sums in the
+    kernel's order).  Timed at the eval M (the phase-6 timer)."""
+    from repro_torch.core.trq import make_params
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.kernels.xbar_mvm import pack_scalars
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    flush = torch.empty(2 * L2_BYTES // 4, device=dev)
+    sms = k3.sm_count(dev)
+    for (k, n), (m_eval, layers) in sorted(cnn_k3_shapes(torch).items()):
+        for m in sorted({1, 4, m_eval}):
+            a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev)
+            sp = k3.plan(m, -(-k // 128), n, 8, 8, sms)
+            for name, regs in CNN_K3_REGS:
+                p = make_params(device=dev, **regs) if regs else None
+                s = pack_scalars(p, dev)
+                kw = dict(lossless=p is None, per_output=True)
+                if p is not None:
+                    kw.update(n_r1=p.n_r1, n_r2=p.n_r2, m=p.m, nu=p.nu,
+                              mode=p.mode)
+                acc, ops, per = k3.xbar_mvm_cuda(a_mask, w_mask, s, **kw)
+                acc_r, ops_r, per_r = plain_k3(torch, a_mask, w_mask, s,
+                                               **kw)
+                torch.cuda.synchronize()
+                same = torch.equal(acc, acc_r) and torch.equal(per, per_r) \
+                    and int(ops) == int(ops_r)
+                rec["max_abs_err"] = max(rec["max_abs_err"], float(
+                    (acc - acc_r).abs().max()))
+                line = (f"  {m:>6}x{k:>3}x{n:>3} {sp.body}/split "
+                        f"{sp.split} {name:>8}: ops {int(ops)}, out and "
+                        f"per-output ops bitwise equal to plain: {same} "
+                        f"({', '.join(layers)})")
+                if not same or not bool(torch.isfinite(acc).all()):
+                    raise AssertionError("K3 differs from its plain version "
+                                         "at a CNN shape:" + line)
+                if name == "lossless" and m == m_eval:
+                    kw_main = dict(kw, per_output=False)
+                    kern = lambda: k3.xbar_mvm_cuda(  # noqa: E731
+                        a_mask, w_mask, s, **kw_main)
+                    ms = device_ms(torch, kern, 20, flush)
+                    per_call = call_ms(torch, kern, 20, flush)
+                    plain = device_ms(torch, lambda: plain_k3(
+                        torch, a_mask, w_mask, s, **kw_main), 3, flush)
+                    a8, w8 = int_mm_planes(torch, a_mask, w_mask)
+                    mm_ms = device_ms(torch, lambda: torch._int_mm(a8, w8),
+                                      20, flush)
+                    del a8, w8
+                    b, by = k3_bound(m, k, n)
+                    b_ops = 2 * 64 * m * k * n / B1_OPS_PER_S * 1e3
+                    rec["shapes"].append(dict(
+                        shape=[m, k, n], ms=ms, call_ms=per_call,
+                        plain_ms=plain, bound_ms=b, bound_by=by,
+                        bound_one_bit_ms=b_ops, int_mm_ms=mm_ms,
+                        body=sp.body, split=sp.split, layers=layers))
+                    line += (f"; {ms:.4f} ms on the device, {per_call:.4f} "
+                             f"ms per call (plain {plain:.4f} ms, bound "
+                             f"{b:.4f} ms by {by}, one-bit operations "
+                             f"{b_ops:.4f} ms; torch._int_mm on the 0/1 "
+                             f"planes {mm_ms:.4f} ms)")
+                log(line)
+                del acc, acc_r, per, per_r
+            del a_mask, w_mask
+            torch.cuda.empty_cache()
+
+
+def cnn_checks(torch, models, n_max: int, device: str) -> dict:
+    """Outside the counted path: plain scoring picks the kernel's registers
+    on every layer at ``n_max``; on one eval batch every layer's K3 call
+    equals its plain version (out and ops), lossless and calibrated, with
+    each layer's largest |acc| and its share of sums at or above 2^24."""
+    from benchmarks.common_torch import trained_cnn
+    from benchmarks.fig6_accuracy_torch import collect_bl
+    from repro_torch.core.calibrate import _subsample, calibrate_layer
+    from repro_torch.models import cnn as cnn_mod
+    from repro_torch.models.cnn import pim_forward
+    from repro_torch.pim import mapping
+
+    out = {}
+    for model in models:
+        spec, _, q, (x_test, _) = trained_cnn(model, device=device)
+        kept = {n: _subsample(y)
+                for n, y in collect_bl(q, x_test[-32:]).items()}
+        cal = {n: calibrate_layer(y, n_max=n_max) for n, y in kept.items()}
+        with plain_kernels():
+            plain = {n: calibrate_layer(y, n_max=n_max)
+                     for n, y in kept.items()}
+        differ = [n for n in kept if regs(plain[n]) != regs(cal[n])]
+        if differ:
+            raise AssertionError(f"{model}: plain scoring picked other "
+                                 f"registers on {differ}")
+        log(f"  {model}: plain scoring picked identical registers on all "
+            f"{len(kept)} layers at n_max = {n_max}")
+        trq = {n: c.params for n, c in cal.items()}
+        layers = []
+        real = mapping.xbar_mvm_packed
+
+        def checked(a_uint, w_mask, p, **kw):
+            y, ops = real(a_uint, w_mask, p, **kw)
+            with plain_kernels():
+                y_p, ops_p = real(a_uint, w_mask, p, **kw)
+            acc = (y + 128.0 * a_uint.float().sum(1, keepdim=True)).abs()
+            torch.cuda.synchronize()
+            layers.append(dict(
+                m=a_uint.shape[0], equal=bool(torch.equal(y, y_p)) and
+                int(ops) == int(ops_p), max_acc=float(acc.max()),
+                above_2_24=float((acc >= 2.0 ** 24).float().mean())))
+            return y, ops
+
+        mapping.xbar_mvm_packed = cnn_mod.xbar_mvm_packed = checked
+        try:
+            for key, t in (("lossless", None), ("calibrated", trq)):
+                layers.clear()
+                pim_forward(q, x_test[:CNN_EVAL_BATCH], t)
+                for name, r in zip(q.pim_layers, layers):
+                    log(f"    {model}/{name} {key}: M = {r['m']}, K3 equal "
+                        f"to plain {r['equal']}, largest |acc| "
+                        f"{r['max_acc']:.0f}, share >= 2^24 "
+                        f"{r['above_2_24']:.3g}")
+                if len(layers) != len(q.pim_layers) or \
+                        not all(r["equal"] for r in layers):
+                    raise AssertionError(f"{model} {key}: K3 differs from "
+                                         f"its plain version on an eval "
+                                         f"batch")
+                out[f"{model}/{key}"] = [dict(r) for r in layers]
+        finally:
+            mapping.xbar_mvm_packed = cnn_mod.xbar_mvm_packed = real
+        torch.cuda.empty_cache()
+    return out
+
+
+def cnn_phase(torch, rec1: dict, rec2: dict, rec3: dict,
+              device: str = "cuda") -> dict:
+    """The paper's evaluation on the card (see the module docstring,
+    phase 15): train, Fig. 3, Fig. 6, Fig. 6c/7, quickstart's steps 4 and
+    5, with every kernel's launches counted from 0; then the checks."""
+    import importlib
+    import numpy as np
+    from benchmarks import fig3_distribution_torch as fig3
+    from benchmarks import fig6_accuracy_torch as fig6
+    from benchmarks import fig6c_fig7_energy_torch as fig6c
+    from benchmarks.common_torch import STEPS, cnn_loss, trained_cnn
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.kernels.trq_quant import kernel as k2
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.models.cnn import LENET5, RESNET20, init_cnn, \
+        pim_shapes, real_conversions
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    quickstart = importlib.import_module("quickstart_torch")
+
+    dev = torch.device(device)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stages, t = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - t
+        t = now
+
+    # -- the main path: every count from 0 ------------------------------
+    k1.LAUNCHES = k2.LAUNCHES = k2.SCORE_LAUNCHES = k3.LAUNCHES = 0
+    losses = {}
+    for name in ("lenet5", "resnet20"):
+        spec, params, _, (x_test, y_test) = trained_cnn(name, retrain=True,
+                                                        device=dev)
+        stage(f"train {name} ({STEPS[name]} steps)")
+        with torch.no_grad():
+            losses[name] = [float(cnn_loss(p, x_test[:256], y_test[:256],
+                                           spec))
+                            for p in (init_cnn(spec, device=dev), params)]
+        log(f"  {name}: loss on 256 test images {losses[name][0]:.4f} at "
+            f"the seeded init, {losses[name][1]:.4f} trained (chance: ln 10 "
+            f"= 2.3026)")
+    fig3.run(device=dev)
+    stage("fig3 lenet5")
+    f6 = {"lenet5": fig6.run(model="lenet5", device=dev)}
+    stage("fig6 lenet5")
+    f6["resnet20"] = fig6.run(model="resnet20", device=dev)
+    stage("fig6 resnet20")
+    f6c = fig6c.run(device=dev)
+    stage("fig6c/fig7")
+    rng = np.random.default_rng(0)
+    y = quickstart.skewed_samples(rng)
+    p = quickstart.calibrate(y, dev).params
+    quickstart.kernel_check(*quickstart.quantize(y, p, dev), p)
+    sweep = quickstart.backend_sweep(p, rng, dev)
+    stage("quickstart steps 4-5")
+    launches = dict(xbar_mvm=k3.LAUNCHES, trq_score=k2.SCORE_LAUNCHES,
+                    trq_quant=k2.LAUNCHES, trq_group_mvm=k1.LAUNCHES)
+
+    # one scoring launch a calibrate_layer: Fig. 6 at each of its 7 bit
+    # widths on each model's layers, Fig. 6c at n_max = 4, quickstart's
+    # step 2.  One K3 launch a layer of each pim_forward: Fig. 3's
+    # collect_bl (LeNet-5); Fig. 6's collect_bl, then its 512 images in
+    # batches of 256 lossless and under U and TRQ at each bit width;
+    # Fig. 6c's collect_bl, TRQ and lossless forwards; and two in the
+    # sweep (bit_exact, and noisy, whose null model routes to bit_exact)
+    n_layers = {spec.name: len(pim_shapes(spec)) for spec in (LENET5,
+                                                              RESNET20)}
+    calibrations = sum(n_layers.values()) * (7 + 1) + 1
+    fig6_forwards = 1 + -(-512 // 256) * (1 + 2 * 7)
+    k3_launches = n_layers["lenet5"] * (1 + fig6_forwards + 3) + \
+        n_layers["resnet20"] * (fig6_forwards + 3) + 2
+    log(f"  launches in the phase: K3 {launches['xbar_mvm']} (one a layer "
+        f"of each forward, two in the sweep: {k3_launches}), K2 scoring "
+        f"{launches['trq_score']} (one a calibration: {calibrations}), K2 "
+        f"elementwise {launches['trq_quant']}, K1 "
+        f"{launches['trq_group_mvm']}")
+    if launches["trq_score"] != calibrations or \
+            launches["trq_quant"] != 1 or launches["trq_group_mvm"] != 1 \
+            or launches["xbar_mvm"] != k3_launches:
+        raise AssertionError(f"phase 15's launches are not the path's: "
+                             f"{launches}")
+    rec3["launches_by_path"]["cnn"] = launches["xbar_mvm"]
+    rec1["launches_by_path"]["quickstart"] = launches["trq_group_mvm"]
+    for entry in ("trq_score", "trq_quant"):
+        rec2["launches_by_entry"][entry] += launches[entry]
+    rec2["launches"] = sum(rec2["launches_by_entry"].values())
+
+    # -- the closed form of the lossless op total --------------------------
+    for spec in (LENET5, RESNET20):
+        r = f6c[spec.name]
+        want = r["n_img"] * 8 * real_conversions(spec)
+        log(f"  {spec.name}: lossless A/D ops {r['ops_full']} over "
+            f"{r['n_img']} images, closed form {want} "
+            f"({8 * real_conversions(spec)} an image); TRQ {r['ops_trq']}: "
+            f"ratio {r['op_ratio']:.4f}, {1 / r['op_ratio']:.3f}x fewer "
+            f"(paper: 1.6-2.3x)")
+        if r["ops_full"] != want:
+            raise AssertionError(f"{spec.name}: lossless A/D ops "
+                                 f"{r['ops_full']} != closed form {want}")
+    for model, r in f6.items():
+        log(f"  {model}: float {r['float_acc']:.4f}, lossless PIM "
+            f"{r['pim_lossless_acc']:.4f}; U / TRQ by bits: " + ", ".join(
+                f"{b}: {r['uniform'][b]:.4f} / {r['trq'][b]:.4f}"
+                for b in r["trq"]))
+    stage("closed form")
+    checks = cnn_checks(torch, ("lenet5", "resnet20"), 4, device)
+    stage("checks")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"  phase 15 stages (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in stages.items()) +
+        f"; peak {peak:.2f} GiB allocated")
+    timed = [x for x in rec3["shapes"] if "layers" in x]
+    for x in timed:
+        log(f"  K3 at {'x'.join(map(str, x['shape']))} "
+            f"({', '.join(x['layers'])}): {x['ms']:.4f} ms on the device, "
+            f"bytes bound {k3_bound(*x['shape'])[0]:.4f} ms, one-bit "
+            f"bound {x['bound_one_bit_ms']:.4f} ms")
+    return dict(losses=losses, fig6=f6, fig6c=f6c, sweep=sweep, launches=launches,
+                calibrations=calibrations, stages_s=stages, peak_gib=peak,
+                checks=checks)
+
+
 def pallas_config():
     from repro_torch.models.registry import get_config
     cfg = get_config(ARCH).replace(param_dtype="bfloat16",
@@ -3001,6 +3314,8 @@ def main(argv) -> int:
     score = k2_score_phase(torch, rec2)
     log("phase 6: xbar_mvm against its plain version and an f64 control")
     k3_phase(torch, rec3)
+    log("phase 6: xbar_mvm against its plain version at the CNNs' shapes")
+    cnn_k3_phase(torch, rec3)
     log("phase 7: serve full-width llama3.2-3b on bit_exact")
     cfg_be = cfg.replace(pim_backend="bit_exact")
     serve_be = bit_exact_phase(torch, rec3, cfg_be)
@@ -3048,6 +3363,15 @@ def main(argv) -> int:
     t14 = time.perf_counter()
     jamba = jamba_phase(torch, rec, rec3, jamba_config())
     jamba["phase_s"] = time.perf_counter() - t14
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15: the paper's evaluation: LeNet-5 and ResNet-20 trained, "
+        f"Figs. 3, 6, 6c and 7, quickstart's steps 4 and 5 "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated)")
+    t15 = time.perf_counter()
+    cnn = cnn_phase(torch, rec, rec2, rec3)
+    cnn["phase_s"] = time.perf_counter() - t15
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -3074,6 +3398,7 @@ def main(argv) -> int:
     log(json.dumps({"whisper": whisper}))
     log(json.dumps({"granite": granite}))
     log(json.dumps({"jamba": jamba}))
+    log(json.dumps({"cnn": cnn}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())

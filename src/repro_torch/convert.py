@@ -6,7 +6,8 @@ params)``), with the period-stacked leaves of ``params['periods']``, and
 returns the state dict the port's model loads: period ``p``, layer ``i``
 of the period becomes ``layers.{p * period + i}``; an encoder-decoder's
 ``enc``/``dec`` stacks (layer axis 0) become ``enc.{i}``/``dec.{i}``.
-Layouts are shared (``(K, N)`` weights), so every leaf converts as it is.
+Layouts are shared (``(K, N)`` weights), so every leaf converts as it is;
+``cnn_from_jax`` does the same for the paper's CNNs.
 """
 from __future__ import annotations
 
@@ -50,3 +51,13 @@ def from_jax(params_np: dict, cfg) -> dict:
                     depth = p * cfg.period + idx
                     state[f"layers.{depth}.{path}"] = _tensor(leaf[p])
     return state
+
+
+def cnn_from_jax(params_np: dict, device=None) -> dict:
+    """The reference's flat CNN parameters (``repro.models.cnn.init_cnn``:
+    ``{"conv0": {"w": HWIO, "b": ...}, "fc7": ..., "proj12": ...}`` as numpy
+    arrays) -> the port's (``repro_torch.models.cnn``): the same names and
+    layouts, every leaf a tensor on ``device`` (as given: None keeps the
+    CPU)."""
+    return {name: {k: _tensor(v).to(device) for k, v in leaf.items()}
+            for name, leaf in params_np.items()}

@@ -1,6 +1,6 @@
-"""Energy model — paper Eq. 4 / Eq. 6 / Eq. 9 (port of the accounting
-half of ``repro.core.energy``; the layer and system reports are not ported
-yet).
+"""Energy model — paper Eq. 4 / Eq. 6 / Eq. 9 and the Fig. 7 breakdown
+(port of ``repro.core.energy``: the accounting, the layer and model
+reports and the system power breakdown).
 
 As in the paper, the *ratios* are the reproducible quantity: the TRQ claim
 (ADC dynamic energy compressed to 42-62%) depends only on A/D-operation
@@ -8,7 +8,9 @@ counts, which this model takes exactly from the datapath.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Mapping
 
 import torch
 
@@ -21,6 +23,17 @@ R_CELL = 1              # bits per ReRAM cell (paper §V-A)
 R_DA = 1                # DAC resolution (bit-serial inputs)
 K_W = 8                 # weight bit-width (paper §V-A)
 K_I = 8                 # input bit-width
+
+# ISAAC-style static power shares of a tile (ADC-dominant; paper §I: >60%).
+# Used only for the Fig. 7 system-level breakdown.
+POWER_SHARES = {
+    "ADC": 0.61,
+    "DAC": 0.07,
+    "crossbar": 0.11,
+    "shift_add": 0.04,
+    "buffers": 0.09,
+    "noc": 0.08,
+}
 
 
 def conversions_per_mvm(in_features: int, out_features: int,
@@ -62,3 +75,54 @@ def trq_op_ratio(y: torch.Tensor, p: TRQParams,
                  r_adc: int = R_ADC_DEFAULT) -> torch.Tensor:
     """Fraction of baseline A/D operations remaining under TRQ (Fig. 6c)."""
     return mean_ops_trq(y, p) / mean_ops_uniform(r_adc)
+
+
+# ---------------------------------------------------------------------------
+# Layer / model accounting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LayerEnergyReport:
+    name: str
+    conversions: int            # A/D conversions per inference
+    mean_ops_uniform: float     # ops/conversion, full-precision baseline
+    mean_ops_trq: float         # ops/conversion, calibrated TRQ
+    energy_uniform_pj: float
+    energy_trq_pj: float
+
+    @property
+    def ratio(self) -> float:
+        return self.energy_trq_pj / max(self.energy_uniform_pj, 1e-30)
+
+
+def layer_report(name: str, in_features: int, out_features: int,
+                 n_mvms: int, y_samples: torch.Tensor, p: TRQParams,
+                 r_adc: int = R_ADC_DEFAULT) -> LayerEnergyReport:
+    conv = conversions_per_mvm(in_features, out_features) * n_mvms
+    ops_u = mean_ops_uniform(r_adc)
+    y = torch.as_tensor(y_samples, dtype=torch.float32)
+    ops_t = float(mean_ops_trq(y, p.to(y.device)))
+    return LayerEnergyReport(
+        name=name,
+        conversions=conv,
+        mean_ops_uniform=ops_u,
+        mean_ops_trq=ops_t,
+        energy_uniform_pj=adc_energy_pj(conv * ops_u),
+        energy_trq_pj=adc_energy_pj(conv * ops_t),
+    )
+
+
+def model_adc_ratio(reports: Mapping[str, LayerEnergyReport]) -> float:
+    """Conversion-weighted remaining-energy ratio across layers (Fig. 6c)."""
+    e_t = sum(r.energy_trq_pj for r in reports.values())
+    e_u = sum(r.energy_uniform_pj for r in reports.values())
+    return e_t / max(e_u, 1e-30)
+
+
+def system_power_breakdown(adc_ratio: float) -> dict:
+    """Fig. 7: scale the ADC share by the TRQ ratio and report each
+    component's share of the *original* total (so savings are visible)."""
+    out = dict(POWER_SHARES)
+    out["ADC"] = POWER_SHARES["ADC"] * adc_ratio
+    out["total"] = sum(v for k, v in out.items() if k != "total")
+    return out

@@ -33,6 +33,18 @@ from repro_torch.core.trq import make_params as tmake  # noqa: E402
 from repro_torch.pim.crossbar import collect_bl_samples  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Run this module's torch ops on one thread.  The plain scoring version
+    runs a few thousand small ops a layer; on a CPU that other test
+    processes oversubscribe, each op's OpenMP barrier waits for threads
+    that are not scheduled, and a seconds-long test takes minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def rng():
     return np.random.default_rng(53)

@@ -566,3 +566,61 @@ def test_kernels_equal_plain_at_jamba_x_proj(card, m):
     assert _beside_other_work(
         card, lambda: k3.xbar_mvm_cuda(a_mask, w_mask, s3, **kw3)[0],
         acc) == 0
+
+
+# the paper's CNNs on K3: (M, K, N) of LeNet-5's conv0 at 256 images
+# (200,704 rows, N = 6 of a 32-column tile, K = 25 in one part-filled
+# group), decode-sized rows of the narrow layers, ResNet-20's widest convs
+CNN_K3_SHAPES = [(200704, 25, 6), (1, 25, 6), (4, 27, 16), (17, 150, 16),
+                 (4096, 576, 64), (256, 400, 120), (5, 84, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regs", [None,
+                                  dict(delta_r1=1.0, n_r1=4, n_r2=4, m=3),
+                                  dict(delta_r1=2.5, n_r1=4, n_r2=4, m=0,
+                                       mode="uniform")],
+                         ids=["lossless", "twin", "uniform"])
+@pytest.mark.parametrize("m,k,n", CNN_K3_SHAPES)
+def test_xbar_mvm_kernel_equals_plain_at_cnn_shapes(card, m, k, n, regs):
+    """K3 at the CNNs' shapes, bit for bit against its plain version: N
+    as small as 6, K = 25 and 27 (one part-filled group), M up to one
+    256-image batch of LeNet-5's first conv."""
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
+    rng = np.random.default_rng(m + k + n)
+    a_mask, w_mask = _xbar_operands(rng, card, m, k, n)
+    s, kw = _xbar_kwargs(card, regs)
+    acc, ops, per = k3.xbar_mvm_cuda(a_mask, w_mask, s, per_output=True,
+                                     **kw)
+    acc_r, ops_r, per_r = xbar_mvm_ref(a_mask, w_mask, s, per_output=True,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_r) and torch.equal(per, per_r)
+    assert int(ops) == int(ops_r)
+
+
+@pytest.mark.cuda
+def test_lenet_runs_every_layer_through_xbar_mvm(card):
+    """LeNet-5's PIM forward on the card: one K3 launch a conv or FC layer,
+    the lossless op total equal to the closed form of the real shapes,
+    and the logits those of the plain version on the CPU (same weights
+    and images; float convs in another order may move a requantized code,
+    so the bar is relative L2 1e-2 with the same argmax)."""
+    from repro_torch.data.synthetic import vision_dataset
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.models import cnn
+    params = cnn.init_cnn(cnn.LENET5, seed=0, device=card)
+    x, _ = vision_dataset(8, noise=0.8, device=card)
+    q = cnn.quantize_cnn(params, cnn.LENET5, x)
+    before = k3.LAUNCHES
+    logits, ops = cnn.pim_forward(q, x, None, with_ops=True)
+    assert k3.LAUNCHES - before == len(q.pim_layers) == 5
+    assert int(ops) == 8 * 8 * cnn.real_conversions(cnn.LENET5)
+    cpu = {n: {k: v.cpu() for k, v in p.items()} for n, p in params.items()}
+    q_cpu = cnn.quantize_cnn(cpu, cnn.LENET5, x.cpu())
+    want = cnn.pim_forward(q_cpu, x.cpu(), None)
+    got = logits.cpu()
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) \
+        < 1e-2
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -12,6 +12,12 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_trq_torch.py",
     ROOT / "benchmarks" / "serve_bench_torch.py",
     ROOT / "benchmarks" / "noise_sweep_torch.py",
+    ROOT / "benchmarks" / "common_torch.py",
+    ROOT / "benchmarks" / "fig3_distribution_torch.py",
+    ROOT / "benchmarks" / "fig6_accuracy_torch.py",
+    ROOT / "benchmarks" / "fig6c_fig7_energy_torch.py",
+    ROOT / "examples" / "calibrate_cnn_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
     ROOT / "tools" / "k1_flip_census.py",
     ROOT / "tools" / "k3_stage_race.py"]
 BANNED = ("jax", "jaxlib", "repro")
@@ -48,7 +54,9 @@ def test_the_walk_sees_the_port():
                 "pim/noise.py", "models/rwkv6.py", "configs/rwkv6_7b.py",
                 "models/encdec.py", "configs/whisper_medium.py",
                 "models/moe.py", "configs/granite_moe_3b_a800m.py",
-                "models/mamba.py", "configs/jamba_v0_1_52b.py"):
+                "models/mamba.py", "configs/jamba_v0_1_52b.py",
+                "core/sar_adc.py", "core/coding.py", "pim/mapping.py",
+                "models/cnn.py", "data/synthetic.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 

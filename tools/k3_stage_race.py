@@ -12,8 +12,10 @@ Each ``--k3-source`` (default: the checkout's ``csrc/xbar_mvm.cu``) and
 each ``--k1-source`` (default: ``csrc/trq_group_mvm.cu``) is built with the
 package's nvcc flags into ``$TMPDIR`` and run through the package's
 wrapper, sources alternating round by round.  K3 runs at 1,500 rows
-(1,024 -> 1,024 / 4,096, 4,096 -> 1,024) and at jamba-v0.1-52b's
-``x_proj`` (8,192 -> 288) at 4 and 64 rows, K1's TMA body at decode rows
+(1,024 -> 1,024 / 4,096, 4,096 -> 1,024), at jamba-v0.1-52b's
+``x_proj`` (8,192 -> 288) at 4 and 64 rows, and at LeNet-5's first conv
+(25 -> 6: one part-filled group, 6 of a tile's 32 columns) at 4, 4,096
+and 200,704 rows (a 256-image batch), K1's TMA body at decode rows
 (whisper-medium's, granite-moe-3b-a800m's and jamba's ``x_proj``, whose
 288 columns end K1's 128-column blocks on a ragged 32); each K1 source is
 also timed on the device at llama3.2-3b's decode ``w_gate``, granite's
@@ -35,7 +37,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 K3_SHAPES = [(1500, 4096, 1024), (1500, 1024, 1024), (1500, 1024, 4096),
-             (4, 8192, 288), (64, 8192, 288)]
+             (4, 8192, 288), (64, 8192, 288), (4, 25, 6), (4096, 25, 6),
+             (200704, 25, 6)]
 K1_SHAPES = [(4, 1024, 1024), (4, 4096, 1024), (4, 1024, 4096),
              (8, 4096, 1024), (4, 1536, 1536), (4, 1536, 512),
              (1, 8192, 288), (4, 8192, 288), (16, 8192, 288)]
