@@ -28,13 +28,21 @@ which fails the run on any error:
            at M = 1, 2, 3, 4, 16 and 64, and jamba-v0.1-52b's four new
            ones (4,096 -> 16,384 / 1,024, 8,192 -> 288 / 4,096; ``x_proj``'s
            288 ends K1's 128-column blocks on a ragged 32) at M = 1, 2, 3,
-           4, 16 and 64, exact and at the
+           4, 16 and 64, and phase 16's eleven (``DENSE_KN``: glm4's
+           4,096 -> 256 / 13,696 and 13,696 -> 4,096, deepseek-7b's
+           4,096 -> 11,008 and 11,008 -> 4,096, and at d = 8,192 -> 8,192
+           / 1,024 / 22,016 / 28,672 and 22,016 / 28,672 -> 8,192) at
+           M = 1, 2, 3, 4, 16 and 64 with internvl2's prefill rows (256
+           through ``patch_proj``, 320 through every layer), and its four
+           lm_heads (4,096 -> 151,552 / 102,400, 8,192 -> 102,400 /
+           128,256) at M = 1-4, exact and at the
            float bar with equal ops; times of the whole call (both passes)
            at M = 4, 16, 64 and that prefill (on rwkv6's shapes, at those
            phase 11's trace gives the kernel, ``RWKV_PATH``; on whisper's,
            at phase 12's, ``WHISPER_PATH``; on granite's, at phase 13's,
-           ``GRANITE_PATH``; on jamba's, at phase 14's, ``JAMBA_PATH``)
-           beside the
+           ``GRANITE_PATH``; on jamba's, at phase 14's, ``JAMBA_PATH``; on
+           phase 16's, at M = 4 and 64 and the lm_heads at 1 and 4,
+           ``DENSE_PATH``) beside the
            bound (bf16 weights read at 2 bytes each): the device time (20
            launches, each after an L2 flush, replayed as one CUDA graph,
            less the flushes), the time of one call as a caller sees it,
@@ -83,7 +91,9 @@ which fails the run on any error:
            at M = 1, 2, 4, 8, 16, 32 and 64, whisper-medium's three at M =
            4, 8 and 1,500, granite-moe-3b-a800m's two at M = 1, 2, 3, 4, 16
            and 64, jamba-v0.1-52b's four new ones at M = 1, 2, 3, 4, 16
-           and 64, ragged 3 x 300 x 130, and one
+           and 64, phase 16's fifteen at phase 2's rows (with the main
+           path's registers only: their bodies and splits are the earlier
+           shapes'), ragged 3 x 300 x 130, and one
            shape with k_i = k_w = 4 (the general body), with the default
            registers, a fractional step and the lossless mode: op counts
            (total and per output) exactly equal everywhere; y bitwise equal
@@ -94,11 +104,14 @@ which fails the run on any error:
            body's shapes (the wrapper's shape plan) are printed; timed at
            M = 4, 16 and 64 (on rwkv6's shapes, at phase 11's; on
            whisper's, at phase 12's; on granite's, at phase 13's; on
-           jamba's, at phase 14's) beside the
+           jamba's, at phase 14's; on phase 16's, at phase 2's) beside
+           the
            bound (packed bytes at 3.35 TB/s or
            the 0/1 products at the card's one-bit tensor-core rate,
            ``B1_OPS_PER_S``) and ``torch._int_mm`` on the unpacked int8 0/1
-           planes, (k_i M, K) @ (K, k_w N), as a yardstick (the same
+           planes, (k_i M, K) @ (K, k_w N), as a yardstick (the plain
+           version, the control and the yardstick's operands unpack the
+           weight planes a column block at a time; the same
            multiply-adds with no per-group conversion; never on the path);
            then at every (K, N) of LeNet-5 and ResNet-20 (N as small as 6,
            K = 25 and 27 in one part-filled group) at M = 1, 4 and one
@@ -284,11 +297,49 @@ which fails the run on any error:
            accuracies, the op ratio against the paper's 1.6-2.3x, the
            Fig. 7 shares, K3's device ms per CNN layer against its bounds
            (phase 6), the phase's seconds by stage and its peak memory.
+16. dense  the reference's last four LM configs at every published width,
+           bf16, seeded random weights, one at a time (each freed before
+           the next): deepseek-7b (30 layers, d=4,096, 32 query and 32 KV
+           heads, d_ff 11,008, vocab 102,400, an untied ``lm_head``) and
+           glm4-9b (40 layers, 32 query and 2 KV heads, d_ff 13,696, vocab
+           151,552, untied) at full depth; deepseek-67b (d=8,192, 64/8
+           heads, d_ff 22,016, vocab 102,400) cut to 28 of 95 layers and
+           internvl2-76b (d=8,192, 64/8 heads, d_ff 28,672, vocab 128,256,
+           the patch frontend) cut to 22 of 80 (``DENSE_ARCHS``: the bf16
+           weights, the ``bit_exact`` masks and the plain-K3 check's
+           column blocks within the card).  Each runs phase 3's
+           trace on ``pallas``, then on ``bit_exact``, through the paged
+           engine asked for prefix reuse (on for the three dense decoders,
+           kept off by the engine for internvl2, whose every request
+           carries 256 seeded N(0, 1) patch embeddings; max_len 336, the
+           least multiple of 16 that holds 256 + 64 + 16 rows).  Fails
+           unless every prefill launches K1 (then K3) once per planned
+           projection (``len(rt.plan)``) and every decode step that less
+           ``patch_proj``; every request's A/D ops equal the closed form
+           from ``iter_linears`` (held to the config's: 7 ops a
+           conversion, 64 bit-line conversions each on ``bit_exact``; the
+           unreused bucket rows and the 256 patch rows through every
+           layer, the patch rows through ``patch_proj``, one row through
+           the ``lm_head``, and the request's share of each decode step's
+           4 rows); every request's cache holds 256 + 64 rows after its
+           prefill (64 without a frontend); reuse serves the 48-token
+           prefix to the 7 later requests exactly when there is no
+           frontend; every logit finite.  Checks: a full-width prefill on
+           ``fake_quant`` against ``pallas`` at the phase-4 bar (with the
+           256 patch rows on internvl2), and a 16-token prefill (after 16
+           patch rows on internvl2) on ``bit_exact`` through K3's plain
+           version at the phase-7 bar (the plain version runs about 23 G
+           multiply-adds a second: a 64-token prefill through 20 B planned
+           weights would take a minute).  Readings: parameters, the memory
+           after compile and the arch's peak, tokens/s and mean TTFT, one
+           batch-4 decode step and one 64-token prefill (host clock), the
+           decode step's ``torch.profiler`` split on each datapath, and
+           the seconds by stage.
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
-12, 13 and 14 for K1, phases 7, 11, 12, 13 and 14 for K3, the calibration
-of phase 8 for both of K2's entries, phase 15 for all three) and read just
-after; launches that compare a kernel with its plain version do not count.
+12, 13, 14 and 16 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
+calibration of phase 8 for both of K2's entries, phase 15 for all three)
+and read just after; launches that compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -399,6 +450,39 @@ JAMBA_LAUNCHES = 75
 JAMBA_ROW = 25_030_656             # conversions of a row through all 75
 JAMBA_PREFILL_ROW = 22_933_504     # ... of a prefill row (no lm_head)
 JAMBA_SCAN_LEN = 1024              # phase 14: four 256-token chunks
+# phase 16: the reference's last four LM configs, each with its depth cut
+# (None: every layer).  The two d = 8,192 models are cut where the card's
+# 80 GB still hold the bf16 weights, the bit_exact masks (1 byte a planned
+# weight) and the plain-K3 check's column blocks
+DENSE_ARCHS = (("deepseek-7b", None), ("glm4-9b", None),
+               ("deepseek-67b", 28), ("internvl2-76b", 22))
+# (K, N) that phase 16 brings to K1 and K3: glm4's wk/wv and MLP,
+# deepseek-7b's MLP, at d = 8,192 wq/wo (and internvl2's patch_proj),
+# wk/wv and deepseek-67b's and internvl2's MLPs (wq/wk/wv/wo at d = 4,096
+# are rwkv6's 4,096 x 4,096); then the four untied lm_heads
+DENSE_KN = ((4096, 256), (4096, 13696), (13696, 4096), (4096, 11008),
+            (11008, 4096), (8192, 8192), (8192, 1024), (8192, 22016),
+            (22016, 8192), (8192, 28672), (28672, 8192))
+DENSE_HEADS = ((4096, 151552), (4096, 102400), (8192, 102400),
+               (8192, 128256))
+# phases 2 and 6: the rows phase 16 gives those shapes: 1-4 (decode; the
+# lm_head's prefill row), 16 (a continued prefill's suffix under reuse and
+# the plain-K3 check's prefill), 64 (the trace's bucket), and internvl2's
+# prefill (256 patch rows through patch_proj, then those rows and the
+# 64-token bucket through every layer); an lm_head sees one row a prefill
+# and the decode step's 4
+VLM_PATCHES = 256
+DENSE_MS = (1, 2, 3, 4, 16, 64)
+DENSE_CHECKS = [(m, k, n) for m in DENSE_MS for k, n in DENSE_KN] + [
+    (m, k, n) for m in (1, 2, 3, 4) for k, n in DENSE_HEADS] + [
+    (VLM_PATCHES, 8192, 8192)] + [
+    (VLM_PATCHES + 64, k, n) for k, n in ((8192, 8192), (8192, 1024),
+                                          (8192, 28672), (28672, 8192))]
+# where both kernels are timed: the batch-4 decode step and the 64-token
+# prefill; an lm_head's decode step and prefill row
+DENSE_PATH = sorted([(m, k, n) for m in (4, 64) for k, n in DENSE_KN]
+                    + [(m, k, n) for m in (1, 4) for k, n in DENSE_HEADS])
+DENSE_PLAIN_TOKENS = 16            # phase 16: the plain-K3 check's prefill
 ROUTER_MARGIN = 1e-6               # phase 13: k-th less (k+1)-th probability
 ROUTER_REL_BAR = 2e-2              # phase 13: bf16 MoE layer against f64
 WKV_TOL = 1e-4                     # phase 11: scan against recurrence
@@ -578,6 +662,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases += [((m, k, n), default) for m in GRANITE_MS
               for k, n in GRANITE_KN]
     cases += [((m, k, n), default) for m in JAMBA_MS for k, n in JAMBA_KN]
+    cases += [((m, k, n), default) for m, k, n in DENSE_CHECKS]
     cases += [((3, 300, 130), default), (TMA_RAGGED, default)]
     cases += [(shape, r) for shape in ((64, 3072, 1024), (3, 300, 130))
               for r in R1_REGS]
@@ -605,7 +690,9 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     log(f"  exact: {n_exact} integer cases (M in {K1_MS} at llama's four "
         f"projection shapes, M in {RWKV_MS} at rwkv6's four, M in "
         f"{WHISPER_MS} at whisper's three, M in {GRANITE_MS} at granite's "
-        f"two, M in {JAMBA_MS} at jamba's four, 3x300x130 and "
+        f"two, M in {JAMBA_MS} at jamba's four, M in {DENSE_MS} at phase "
+        f"16's eleven, 1-4 at its four lm_heads, internvl2's prefill rows, "
+        f"3x300x130 and "
         f"{TMA_RAGGED}; bf16 and f32 weights; registers "
         f"given and auto-ranged): y bitwise equal, ops equal")
 
@@ -624,6 +711,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases += [((m, k, n), default, torch.bfloat16, auto)
               for m in JAMBA_MS for k, n in JAMBA_KN
               for auto in (False, True)]
+    cases += [((m, k, n), default, torch.bfloat16, auto)
+              for m, k, n in DENSE_CHECKS for auto in (False, True)]
     cases += [((64, 3072, 1024), r, torch.bfloat16, True) for r in R1_REGS]
     cases += [(shape, default, wdt, True) for wdt in wdtypes
               for shape in ((3, 300, 130), TMA_RAGGED)]
@@ -679,7 +768,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
             raise AssertionError("K1 outside the float bar:" + line)
         if ((k, n) in PROJ_KN and m in K1_TIMED_MS or (m, k, n) in
                 RWKV_PATH or (m, k, n) in WHISPER_PATH or (m, k, n) in
-                GRANITE_PATH or (m, k, n) in JAMBA_PATH) and auto and \
+                GRANITE_PATH or (m, k, n) in JAMBA_PATH or (m, k, n) in
+                DENSE_PATH) and auto and \
                 wdt == torch.bfloat16 and rk is default:
             kern = lambda: trq_group_mvm_cuda(a, w, s, **kw)  # noqa: E731
             ms = device_ms(torch, kern, 20, flush)
@@ -834,16 +924,16 @@ def wall_ms(torch, fn, reps: int = 5) -> float:
 
 
 def forward_times(torch, rt, prompt, batch: int = TRACE_BATCH,
-                  max_len: int = 256) -> dict:
-    """One batch-``batch`` decode step and one prefill of ``prompt``, host
-    clock."""
+                  max_len: int = 256, extra=None) -> dict:
+    """One batch-``batch`` decode step and one prefill of ``prompt`` (and
+    ``extra``), host clock."""
     import numpy as np
     dec_cache = rt.init_cache(batch, max_len)
     dec_toks = np.zeros((batch, 1), np.int32)
     return {"decode_step_ms": wall_ms(torch, lambda: rt.decode(
                 dec_toks, dec_cache)),
             f"prefill{len(prompt)}_ms": wall_ms(torch, lambda: rt.prefill(
-                prompt[None], max_len=max_len))}
+                prompt[None], extra, max_len=max_len))}
 
 
 @contextlib.contextmanager
@@ -968,16 +1058,16 @@ def profile_forward(torch, fn) -> dict:
 
 
 def profile_forwards(torch, rt, prompt, batch: int = TRACE_BATCH,
-                     max_len: int = 256) -> dict:
+                     max_len: int = 256, extra=None) -> dict:
     """The profile of one batch-``batch`` decode step and one prefill of
-    ``prompt``."""
+    ``prompt`` (and ``extra``)."""
     import numpy as np
     dec_cache = rt.init_cache(batch, max_len)
     dec_toks = np.zeros((batch, 1), np.int32)
     return {key: profile_one(torch, key, fn) for key, fn in (
         ("decode_step", lambda: rt.decode(dec_toks, dec_cache)),
-        (f"prefill{len(prompt)}", lambda: rt.prefill(prompt[None],
-                                                     max_len=max_len)))}
+        (f"prefill{len(prompt)}", lambda: rt.prefill(
+            prompt[None], extra, max_len=max_len)))}
 
 
 def profile_one(torch, key: str, fn) -> dict:
@@ -1399,13 +1489,15 @@ def k3_bound(m: int, k: int, n: int, k_i: int = 8, k_w: int = 8):
 
 def column_blocks(a_mask, w_mask):
     """Column slices of ``w_mask`` whose (k_i, k_w, G, M, columns) f32
-    bit-line sums stay within ``PLAIN_BYTES``: the plain version and the
-    control run a block at a time (at M = 64 the lm_head's would take
-    34 GB at once).  Columns are independent, so the blocks' results are
-    the whole call's bit for bit."""
+    bit-line sums and (k_w, G, columns, 128) unpacked f32 weight planes
+    each stay within ``PLAIN_BYTES``: the plain version and the control
+    run a block at a time (at M = 64 rwkv6's lm_head's sums would take
+    34 GB at once; at M = 1 internvl2's lm_head's planes 34 GB).  Columns
+    are independent, so the blocks' results are the whole call's bit for
+    bit."""
     k_i, m, g, _ = a_mask.shape
-    n = w_mask.shape[2]
-    cols = max(1, PLAIN_BYTES // (4 * k_i * w_mask.shape[0] * g * m))
+    k_w, n = w_mask.shape[0], w_mask.shape[2]
+    cols = max(1, PLAIN_BYTES // (4 * k_w * g * max(k_i * m, 128)))
     return [w_mask[:, :, c:c + cols] for c in range(0, n, cols)]
 
 
@@ -1461,15 +1553,22 @@ def k3_operands(torch, gen, m: int, k: int, n: int, dev, bits: int = 8):
 def int_mm_planes(torch, a_mask, w_mask):
     """The yardstick's operands: the unpacked int8 0/1 planes as one
     (k_i M, K) @ (K, k_w N) product for ``torch._int_mm``, whose rows are
-    more than 16: fewer (M <= 2) are padded with zero rows to 24."""
+    more than 16: fewer (M <= 2) are padded with zero rows to 24.  The
+    weight planes are unpacked a column block at a time
+    (:func:`column_blocks`: 32 bytes a weight in f32)."""
     from repro_torch.kernels.xbar_mvm.ref import unpack_planes
-    k_i, m = a_mask.shape[:2]
+    k_i, m, g = a_mask.shape[:3]
     k_w, _, n = w_mask.shape[:3]
     a8 = unpack_planes(a_mask).reshape(k_i * m, -1).to(torch.int8)
     if a8.shape[0] <= 16:
         a8 = torch.nn.functional.pad(a8, (0, 0, 0, 24 - a8.shape[0]))
-    w8 = unpack_planes(w_mask).permute(1, 3, 0, 2).reshape(-1, k_w * n)
-    return a8, w8.to(torch.int8)
+    w8 = torch.empty(g * 128, k_w, n, dtype=torch.int8, device=a8.device)
+    c = 0
+    for wb in column_blocks(a_mask, w_mask):
+        w8[:, :, c:c + wb.shape[2]] = unpack_planes(wb).permute(
+            1, 3, 0, 2).reshape(g * 128, k_w, -1)
+        c += wb.shape[2]
+    return a8, w8.reshape(g * 128, k_w * n)
 
 
 def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
@@ -1489,14 +1588,19 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases += [(m, k, n, 8) for m, k, n in WHISPER_PATH]
     cases += [(m, k, n, 8) for m in GRANITE_MS for k, n in GRANITE_KN]
     cases += [(m, k, n, 8) for m in JAMBA_MS for k, n in JAMBA_KN]
+    cases += [(m, k, n, 8) for m, k, n in DENSE_CHECKS]
     cases += [(3, 300, 130, 8), K3_NARROW]
+    dense = set(DENSE_CHECKS)
     for (m, k, n, bits) in cases:
         a_mask, w_mask = k3_operands(torch, gen, m, k, n, dev, bits)
         g = -(-k // 128)
         sp = k3.plan(m, g, n, bits, bits, sms)
         bodies.setdefault(sp.body, []).append(
             f"{m}x{k}x{n}/{sp.split}")
-        for name, regs, unit in K3_REGS:
+        # phase 16's shapes with the path's registers: their bodies and
+        # splits are the earlier shapes', where all three sets are checked
+        for name, regs, unit in K3_REGS[:1] if (m, k, n) in dense \
+                else K3_REGS:
             p = make_params(device=dev, **regs) if regs else None
             s = pack_scalars(p, dev)
             kw = dict(lossless=p is None, per_output=True)
@@ -1535,14 +1639,15 @@ def k3_phase(torch, rec: dict, device: str = "cuda") -> None:
                     (k, n) in PROJ_KN and m in K3_TIMED_MS or
                     (m, k, n) in RWKV_PATH or (m, k, n) in WHISPER_PATH
                     or (m, k, n) in GRANITE_PATH
-                    or (m, k, n) in JAMBA_PATH):
+                    or (m, k, n) in JAMBA_PATH
+                    or (m, k, n) in DENSE_PATH):
                 kw_main = dict(kw, per_output=False)
                 kern = lambda: k3.xbar_mvm_cuda(  # noqa: E731
                     a_mask, w_mask, s, **kw_main)
                 ms = device_ms(torch, kern, 20, flush)
                 per_call = call_ms(torch, kern, 20, flush)
                 plain = device_ms(torch, lambda: plain_k3(
-                    torch, a_mask, w_mask, s, **kw_main), 3, flush)
+                    torch, a_mask, w_mask, s, **kw_main), 1, flush)
                 a8, w8 = int_mm_planes(torch, a_mask, w_mask)
                 mm_ms = device_ms(torch, lambda: torch._int_mm(a8, w8), 20,
                                   flush)
@@ -1660,7 +1765,8 @@ def plain_k3_check(torch, rt, prompt, max_len: int, extra=None) -> dict:
         plain_s = time.perf_counter() - t1
     rel = rel_l2(l_k, l_p)
     same_top = bool((l_k.argmax(-1) == l_p.argmax(-1)).all())
-    frames = f" with {extra['embeds'].shape[1]} frames" if extra else ""
+    frames = f" with {extra['embeds'].shape[1]} embedding rows" if extra \
+        else ""
     log(f"  {len(prompt)}-token prefill{frames}, K3 vs its plain version "
         f"({plain_s:.1f} s): "
         f"logits relative L2 {rel:.3e} (bar {BIT_EXACT_REL_BAR:.0e}), "
@@ -2965,6 +3071,235 @@ def jamba_phase(torch, rec1: dict, rec3: dict, cfg,
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the reference's last four LM configs
+# ---------------------------------------------------------------------------
+
+def dense_config(arch: str, n_layers=None):
+    """``arch`` at every published width, cut to ``n_layers`` (None: every
+    layer); every projection shape is one phases 2 and 6 check."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=n_layers or cfg.n_layers,
+                      param_dtype="bfloat16", pim_backend="pallas",
+                      remat="none")
+    assert set(projection_shapes(cfg)) <= set(DENSE_KN) | {(4096, 4096)}
+    assert (cfg.d_model, cfg.vocab_size) in DENSE_HEADS
+    assert cfg.frontend_len == (VLM_PATCHES if cfg.frontend == "patch"
+                                else 0)
+    return cfg
+
+
+def dense_rows(model, cfg):
+    """(conversions of a token row through every layer's projections,
+    through the ``lm_head``, of a patch row through ``patch_proj``): N x
+    ceil(K/128) per ``PimLinear`` (``iter_linears``), held to the
+    config's closed form."""
+    from repro_torch.pim.plan import iter_linears
+    rows = {"lm_head": 0, "frontend.patch_proj": 0, "layers": 0}
+    for path, lin in iter_linears(model):
+        k, n = lin.w.shape
+        rows[path if path in rows else "layers"] += n * -(-k // 128)
+    g = -(-cfg.d_model // 128)
+    want = (cfg.n_layers * conversions_per_token(cfg), cfg.vocab_size * g,
+            cfg.d_model * g if cfg.frontend == "patch" else 0)
+    got = (rows["layers"], rows["lm_head"], rows["frontend.patch_proj"])
+    if got != want:
+        raise AssertionError(f"{cfg.name}: conversions a row {got}, the "
+                             f"config's closed form {want}")
+    return got
+
+
+def dense_trace(torch, rt, counter, kname: str, slices: int, max_len: int,
+                patches=None) -> dict:
+    """Phase 3's trace (:func:`trace_prompts`: 8 requests, a shared
+    48-token prefix plus a 16-token tail, 16 new tokens, max batch 4,
+    pages of 16, greedy) through the paged engine asked for prefix reuse,
+    with ``counter.LAUNCHES`` set to 0 just before and read just after;
+    with ``patches`` (R, F, D), each prefill gets the next request's F
+    patch rows.  Fails unless reuse served the prefix to the 7 later
+    requests exactly when the model has no frontend, every prefill
+    launched the kernel ``len(rt.plan)`` times and every decode step that
+    less ``patch_proj``, every request's cache held F + 64 rows after its
+    prefill, every logit was finite, every request got 16 in-vocab tokens,
+    and every request's A/D ops equal the closed form (7 ops a
+    conversion, ``slices`` conversions per group and output; the prefill's
+    unreused bucket rows and F patch rows through every layer, the patch
+    rows through ``patch_proj``, the last row through the ``lm_head``,
+    and the request's share of each decode step's ``TRACE_BATCH`` rows
+    through the layers and the ``lm_head``)."""
+    from repro_torch.serve import ServeEngine
+    cfg = rt.cfg
+    f = 0 if patches is None else patches.shape[1]
+    eng = ServeEngine(rt, max_batch=TRACE_BATCH, max_len=max_len,
+                      block_size=16, prefix_reuse=True,
+                      extra_inputs=None if patches is None
+                      else frame_feed(patches))
+    after = {}
+    prefill = eng._prefill
+
+    def record(r):
+        small = prefill(r)
+        after[r.uid] = r.cache_len
+        return small
+    eng._prefill = record
+    prompts = trace_prompts(cfg)
+    with launches_per_call(torch, rt, counter) as calls:
+        counter.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=16)
+        done = sorted(eng.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counter.LAUNCHES
+    st = eng.stats()
+    layer_row, head_row, front_row = dense_rows(rt.model, cfg)
+    per_conv = 7 * slices
+    ok = len(done) == len(prompts)
+    per_req = []
+    for r, share in zip(done, decode_shares(len(prompts), TRACE_BATCH, 16)):
+        rows = bucket(len(r.prompt), max_len) - r.reused_tokens + f
+        pre = per_conv * (rows * layer_row + f * front_row + head_row)
+        want = pre + per_conv * (layer_row + head_row) * TRACE_BATCH * share
+        ok = ok and r.prefill_ad_ops == pre and r.ad_ops == want and \
+            len(r.generated) == 16 and all(
+                0 <= t < cfg.vocab_size for t in r.generated)
+        per_req.append(r.ad_ops)
+        log(f"  req {r.uid}: reused {r.reused_tokens} prompt tokens, cache "
+            f"{after[r.uid]} rows after prefill, ttft "
+            f"{1e3 * (r.first_token_t - r.submit_t):.1f} ms, ad_ops "
+            f"{r.ad_ops:.0f} (closed form {want:.0f}; prefill "
+            f"{r.prefill_ad_ops:.0f}, closed form {pre}), tokens "
+            f"{list(r.generated)}")
+    forwards = len(calls["prefill"]) + len(calls["decode"])
+    n_front = int(f > 0)
+    log(f"  served {st['requests']} requests, {st['decode_tokens']} tokens "
+        f"in {wall:.2f} s: {st['tokens_per_s']:.2f} tok/s, mean ttft "
+        f"{1e3 * st['mean_ttft_s']:.1f} ms, total ad_ops "
+        f"{st['total_ad_ops']:.0f}; {kname} launches {launches} over "
+        f"{forwards} forwards, prefills {sorted(set(calls['prefill']))}, "
+        f"decode steps {sorted(set(calls['decode']))} ({len(rt.plan)} "
+        f"planned projections); reuse {'on' if eng.prefix_reuse else 'off'}"
+        f", {st['reused_prompt_tokens']} prompt tokens reused; peak pages "
+        f"{st['paged']['peak_pages_in_use']}; logits finite "
+        f"{calls['finite']}")
+    if set(calls["prefill"]) != {len(rt.plan)} or \
+            set(calls["decode"]) != {len(rt.plan) - n_front} or \
+            launches != sum(calls["prefill"] + calls["decode"]):
+        raise AssertionError(f"{cfg.name}: {kname} launches per forward "
+                             f"off the plan's {len(rt.plan)}")
+    reused = [r.reused_tokens for r in done]
+    if eng.prefix_reuse == bool(f) or reused != (
+            [0] * 8 if f else [0] + [48] * 7):
+        raise AssertionError(f"{cfg.name}: reused prompt tokens {reused} "
+                             f"with reuse {eng.prefix_reuse}")
+    if set(after.values()) != {f + 64}:
+        raise AssertionError(f"{cfg.name}: cache rows after prefill "
+                             f"{after}, not {f} + 64")
+    if not ok or not calls["finite"]:
+        raise AssertionError(f"{cfg.name}: A/D ops per request off the "
+                             f"closed form, tokens missing or logits not "
+                             f"finite")
+    return dict(tokens_per_s=st["tokens_per_s"],
+                mean_ttft_ms=1e3 * st["mean_ttft_s"],
+                total_ad_ops=st["total_ad_ops"], ad_ops_per_request=per_req,
+                forwards=forwards, launches=launches, wall_s=wall,
+                peak_pages=st["paged"]["peak_pages_in_use"],
+                tokens=[list(r.generated) for r in done])
+
+
+def dense_phase(torch, rec1: dict, rec3: dict, cfg,
+                device: str = "cuda") -> dict:
+    """One of phase 16's configs at ``cfg`` on ``pallas`` through K1, then
+    on ``bit_exact`` through K3 (see the module docstring, phase 16)."""
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.models.registry import get_config
+
+    torch.cuda.reset_peak_memory_stats()
+    seconds: dict = {}
+    t0 = time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    rt, gib = compile_pallas(torch, cfg, device)
+    stage("compile")
+    n_params = sum(t.numel() for t in rt.model.state_dict().values())
+    rows = dense_rows(rt.model, cfg)
+    full = get_config(cfg.name).n_layers
+    log(f"  cut: {cfg.n_layers} of {full} layers, every width as "
+        f"published; {n_params / 1e9:.3f} B parameters, {gib:.2f} GiB "
+        f"after compile; {len(rt.plan)} planned projections; conversions "
+        f"a row: {rows[0]} through the layers, {rows[1]} the lm_head, "
+        f"{rows[2]} patch_proj")
+    f = cfg.frontend_len if cfg.frontend == "patch" else 0
+    patches = None
+    if f:
+        # seeded N(0, 1) patch embeddings, one set a request
+        gen = torch.Generator(device=device).manual_seed(16)
+        patches = torch.randn(8, f, cfg.d_model, generator=gen,
+                              device=device)
+    # the least multiple of the page that holds F + bucket + new rows
+    max_len = 256 if not f else 16 * -(-(f + 64 + 16) // 16)
+    prompt = trace_prompts(cfg)[0]
+    extra = None if not f else {"embeds": patches[0][None]}
+    short = prompt[:DENSE_PLAIN_TOKENS]
+    extra_short = None if not f else {
+        "embeds": patches[0][None, :DENSE_PLAIN_TOKENS]}
+    out = dict(n_layers=cfg.n_layers, params=n_params,
+               gib_after_compile=gib, max_len=max_len, patch_rows=f)
+    runs = {}
+    for backend, counter, kname, slices in (("pallas", k1, "K1", 1),
+                                            ("bit_exact", k3, "K3",
+                                             SLICES)):
+        if backend == "bit_exact":
+            rt = rt.with_overrides(backend="bit_exact")
+            warm(rt)
+            stage("program")
+            log(f"  programmed {len(rt.plan)} bit_exact layer plans in "
+                f"{seconds['program']:.1f} s; "
+                f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+                f"allocated, peak so far "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        run = runs[backend] = dense_trace(torch, rt, counter, kname, slices,
+                                          max_len, patches)
+        stage(f"{backend}_trace")
+        run.update(forward_times(torch, rt, prompt, max_len=max_len,
+                                 extra=extra))
+        log(f"  {backend}: one decode step (batch {TRACE_BATCH}) "
+            f"{run['decode_step_ms']:.1f} ms, one 64-token prefill"
+            f"{f' after {f} patch rows' if f else ''} "
+            f"{run['prefill64_ms']:.1f} ms")
+        dec_cache = rt.init_cache(TRACE_BATCH, max_len)
+        dec_toks = prompt[:TRACE_BATCH, None].astype("int32")
+        run["profile"] = profile_one(
+            torch, "decode_step", lambda: rt.decode(dec_toks, dec_cache))
+        del dec_cache
+        stage(f"{backend}_times")
+        if backend == "pallas":
+            log("  a full-width prefill, fake_quant against pallas (the "
+                "phase-4 bar)")
+            out.update(fake_quant_check(torch, rt, prompt, max_len, extra))
+            stage("fake_quant_check")
+        else:
+            run.update(plain_k3_check(torch, rt, short, max_len,
+                                      extra_short))
+            stage("plain_k3_check")
+    for rec, backend in ((rec1, "pallas"), (rec3, "bit_exact")):
+        rec["launches_by_path"][cfg.name] = runs[backend]["launches"]
+    out.update(runs)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["seconds"] = seconds
+    log(f"  peak {out['peak_gib']:.2f} GiB allocated in the phase; seconds "
+        f"by stage: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                   seconds.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6 at the CNNs' shapes, and phase 15: the paper's evaluation
 # ---------------------------------------------------------------------------
 
@@ -3372,6 +3707,17 @@ def main(argv) -> int:
     t15 = time.perf_counter()
     cnn = cnn_phase(torch, rec, rec2, rec3)
     cnn["phase_s"] = time.perf_counter() - t15
+    dense = {}
+    for arch, n_layers in DENSE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg16 = dense_config(arch, n_layers)
+        log(f"phase 16: serve {arch} ({cfg16.n_layers} layers) on pallas "
+            f"and bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+            f"GiB still allocated)")
+        t16 = time.perf_counter()
+        dense[arch] = dense_phase(torch, rec, rec3, cfg16)
+        dense[arch]["phase_s"] = time.perf_counter() - t16
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -3399,6 +3745,7 @@ def main(argv) -> int:
     log(json.dumps({"granite": granite}))
     log(json.dumps({"jamba": jamba}))
     log(json.dumps({"cnn": cnn}))
+    log(json.dumps({"dense": dense}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -35,19 +35,26 @@ def pack_planes(x_uint: torch.Tensor, bits: int) -> torch.Tensor:
     return (words - ((words >> 31) << 32)).to(torch.int32)
 
 
-# columns packed at a time when programming weights: pack_planes' int64
-# temporaries take 64 bytes per weight and bit (34 GB for a whole 4,096 x
-# 65,536 lm_head at 8 bits, 2 GB per block of 8,192 columns)
-PACK_COLS = 8192
+# weights packed at a time when programming, in whole columns:
+# pack_planes' int64 temporaries take about 136 bytes a weight at 8 bits
+# (36 GB for a whole 4,096 x 65,536 lm_head, 2.3 GB a block; a block of a
+# fixed 8,192 columns would take 32 GB at K = 28,672)
+PACK_WEIGHTS = 2 ** 24
+
+
+def pack_cols(k: int) -> int:
+    """Columns of K rows that one block of ``PACK_WEIGHTS`` holds."""
+    return max(1, PACK_WEIGHTS // k)
 
 
 def pack_weight_planes(u_uint: torch.Tensor, bits: int) -> torch.Tensor:
     """(K, N) offset-encoded weights -> (bits, G, N, 4) int32 bit masks,
     the layout the kernel reads with one 16-byte load per column (1 byte
-    per weight at bits = 8); packed ``PACK_COLS`` columns at a time."""
+    per weight at bits = 8); packed :func:`pack_cols` columns at a time."""
     cols = u_uint.t()
-    return torch.cat([pack_planes(cols[c:c + PACK_COLS], bits)
-                      for c in range(0, cols.shape[0], PACK_COLS)],
+    step = pack_cols(cols.shape[1])
+    return torch.cat([pack_planes(cols[c:c + step], bits)
+                      for c in range(0, cols.shape[0], step)],
                      dim=1).permute(0, 2, 1, 3).contiguous()
 
 

@@ -14,7 +14,9 @@ installs Algorithm-1 per-layer registers; without it every layer takes the
 model-wide default (which ``pallas`` auto-ranges).  ``--energy-report``
 prints the per-request A/D-conversion and energy table.  An
 encoder-decoder (``--arch whisper-medium``) gets 8 zero frames per prompt
-as its encoder input, as the reference launcher feeds it.
+as its encoder input, and a patch frontend (``--arch internvl2-76b``) 8
+zero patch embeddings as its sequence prefix, as the reference launcher
+feeds them.
 """
 from __future__ import annotations
 
@@ -32,13 +34,13 @@ from ..telemetry.serve_report import format_energy_report, serve_report
 
 
 def frames_stub(cfg, n_frames: int = 8):
-    """The engine's ``extra_inputs`` for ``cfg``: ``n_frames`` zero frame
-    embeddings at every prefill of an encoder-decoder (the stub frontend),
-    nothing otherwise."""
+    """The engine's ``extra_inputs`` for ``cfg``: ``n_frames`` zero
+    embeddings at every prefill of an encoder-decoder or a patch frontend
+    (the stub frontends), nothing otherwise."""
     import torch
 
     def extra_inputs(b: int, s: int) -> dict:
-        if cfg.encoder_layers > 0 and s > 1:
+        if (cfg.encoder_layers > 0 or cfg.frontend == "patch") and s > 1:
             return {"embeds": torch.zeros((b, n_frames, cfg.d_model))}
         return {}
     return extra_inputs

@@ -1,7 +1,7 @@
-"""Decoder-only LM: the dense GQA decoder, the MoE decoder (an expert FFN
-in place of the MLP, or beside it with a dense residual), the
-attention-free rwkv6 decoder and the mamba/attention hybrid (jamba) of
-``repro.models.lm``.
+"""Decoder-only LM: the dense GQA decoder (with or without the vlm's patch
+frontend), the MoE decoder (an expert FFN in place of the MLP, or beside
+it with a dense residual), the attention-free rwkv6 decoder and the
+mamba/attention hybrid (jamba) of ``repro.models.lm``.
 
 The reference scans the layer stack over periods; the port runs a Python
 loop over ``layers``.  The cache is one dict of tensors, each stacked over
@@ -103,14 +103,21 @@ class DecoderLayer(nn.Module):
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-                or cfg.frontend != "none" or cfg.encoder_layers:
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm") \
+                or cfg.frontend not in ("none", "patch") \
+                or cfg.encoder_layers:
             raise NotImplementedError(f"{cfg.name}: only the dense, the "
-                                      f"MoE, the rwkv6 and the hybrid "
-                                      f"decoders are ported")
+                                      f"MoE, the rwkv6, the hybrid and the "
+                                      f"patch-frontend decoders are ported")
         self.cfg = cfg
         dt = pdtype(cfg)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dt, device)
+        # the vlm stub: precomputed patch embeddings, projected and placed
+        # as the sequence prefix
+        self.frontend = None if cfg.frontend == "none" else nn.ModuleDict(
+            {"patch_proj": PimLinear(cfg.d_model, cfg.d_model,
+                                     name="frontend/patch_proj", dtype=dt,
+                                     device=device)})
         self.layers = nn.ModuleList(
             [DecoderLayer(cfg, i, dt, device) for i in range(cfg.n_layers)])
         self.final_norm = RMSNorm(cfg.d_model, device=device)
@@ -123,11 +130,22 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, ctx: PimContext, *,
                 cache: Optional[dict] = None, mode: str = "train",
-                positions: Optional[torch.Tensor] = None):
-        """Returns (logits f32, new_cache or None)."""
+                positions: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None):
+        """``embeds`` (B, F, D): patch embeddings, projected at the
+        parameter dtype by ``frontend/patch_proj`` and placed before the
+        tokens (the reference's ``_embed_inputs``); positions then run
+        over all F + S rows.  Returns (logits f32, new_cache or None)."""
         cfg = self.cfg
         cont = mode == "prefill_cont"
-        x = self.embed(tokens).to(cdtype(cfg))
+        x = self.embed(tokens)
+        if embeds is not None:
+            if self.frontend is None:
+                raise ValueError(f"{cfg.name} has no frontend to take "
+                                 f"'embeds'")
+            fe = self.frontend["patch_proj"](embeds.to(x.dtype), ctx)
+            x = torch.cat([fe, x], 1)
+        x = x.to(cdtype(cfg))
         b, s, _ = x.shape
         if positions is None:
             if mode == "decode" and cache is not None:

@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> config, model and seeded init
-(the ``llama3.2-3b``, ``rwkv6-7b``, ``whisper-medium``,
-``granite-moe-3b-a800m``, ``arctic-480b`` and ``jamba-v0.1-52b`` slice of
-``repro.models.registry``).
+(port of ``repro.models.registry``, every arch it holds: the dense
+``llama3.2-3b``, ``deepseek-7b``, ``glm4-9b`` and ``deepseek-67b``, the
+``internvl2-76b`` decoder with its patch frontend, ``rwkv6-7b``,
+``whisper-medium``, ``granite-moe-3b-a800m``, ``arctic-480b`` and
+``jamba-v0.1-52b``).
 
 The reference's init draws from ``jax.random``, which PyTorch cannot
 replay; :func:`init` draws from a ``torch.Generator`` with the same
@@ -34,8 +36,9 @@ from .mamba import MambaMixer
 from .moe import MoE
 from .rwkv6 import HeadNormAffine, RWKV6TimeMix
 
-ARCHS = ("llama3.2-3b", "rwkv6-7b", "whisper-medium", "granite-moe-3b-a800m",
-         "arctic-480b", "jamba-v0.1-52b")
+ARCHS = ("jamba-v0.1-52b", "deepseek-67b", "deepseek-7b", "llama3.2-3b",
+         "glm4-9b", "granite-moe-3b-a800m", "arctic-480b", "rwkv6-7b",
+         "internvl2-76b", "whisper-medium")
 
 
 def _module_name(arch: str) -> str:
@@ -44,7 +47,7 @@ def _module_name(arch: str) -> str:
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in ARCHS:
-        raise KeyError(f"arch {arch!r} is not ported; ported: {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch)}")
     return mod.smoke() if smoke else mod.CONFIG
 

@@ -213,14 +213,28 @@ def bit_exact_weights(w: torch.Tensor, pim: PimConfig, w_scale=None):
     """The programming pass of a (K, N) weight: ``(w_scale, w_mask,
     w_colsum)`` — the frozen scale, the offset-encoded cell planes packed
     as ``xbar_mvm`` bit masks, and the per-column sum of the int weights
-    for the digital offset correction."""
+    for the digital offset correction.  Columns are programmed a packing
+    block at a time (``pack_cols``), so the pass's f32 and int
+    temporaries (about 20 bytes a weight) are a block's, not the whole
+    matrix's (19 GiB for an 8,192 x 128,256 lm_head); columns are
+    independent, so the result is the whole matrix's bit for bit."""
     from ..kernels.xbar_mvm import pack_weight_planes
-    wf = w.float()
-    w_s = ptq_scale(wf, pim.k_w) if w_scale is None else \
+    from ..kernels.xbar_mvm.ops import XBAR, pack_cols
+    k, n = w.shape
+    # max |w| is exact in the weight's own dtype
+    w_s = ptq_scale(torch.amax(torch.abs(w)).float(), pim.k_w) \
+        if w_scale is None else \
         torch.as_tensor(w_scale, dtype=torch.float32, device=w.device)
-    w_int = ptq_int(wf, w_s, pim.k_w)
-    u, _ = offset_encode(w_int, pim.k_w)
-    return w_s, pack_weight_planes(u, pim.k_w), w_int.float().sum(0)
+    w_mask = torch.empty((pim.k_w, -(-k // XBAR), n, 4), dtype=torch.int32,
+                         device=w.device)
+    w_colsum = torch.empty(n, dtype=torch.float32, device=w.device)
+    step = pack_cols(k)
+    for c in range(0, n, step):
+        w_int = ptq_int(w[:, c:c + step].float(), w_s, pim.k_w)
+        u, _ = offset_encode(w_int, pim.k_w)
+        w_mask[:, :, c:c + step] = pack_weight_planes(u, pim.k_w)
+        w_colsum[c:c + step] = w_int.float().sum(0)
+    return w_s, w_mask, w_colsum
 
 
 def bit_exact_run(x: torch.Tensor, w_mask: torch.Tensor,

@@ -166,8 +166,13 @@ def prepare_params(model, cfg, quant_state=None,
     ``cfg.trq`` default and keep auto-ranging, as the dynamic path does.
     ``crossbar_model`` is the simulated device a noise-aware recipe bakes;
     its fingerprint rides the plan as ``cm_token``."""
-    from ..models.layers import cdtype, trq_params_from_cfg
+    from ..models.layers import cdtype, pdtype, trq_params_from_cfg
     backend = backend or cfg.pim_backend
+    # a decoder-only model's frontend runs before the compute-dtype cast,
+    # on activations at the parameter dtype, so it is frozen at that dtype
+    # (an encoder-decoder casts its frames first); ``dtype=`` overrides both
+    front_dtype = dtype if dtype is not None else (
+        cdtype(cfg) if cfg.encoder_layers else pdtype(cfg))
     dtype = dtype if dtype is not None else cdtype(cfg)
     default_trq = trq_params_from_cfg(cfg.trq)
     layers = {}
@@ -179,7 +184,8 @@ def prepare_params(model, cfg, quant_state=None,
             layers[path] = prepare_linear(
                 lin.w, t if t is not None else default_trq, backend=backend,
                 auto_range=auto, delta_grid=cfg.trq.delta_grid, pim=pim,
-                dtype=dtype, crossbar_model=crossbar_model)
+                dtype=front_dtype if path.startswith("frontend.") else dtype,
+                crossbar_model=crossbar_model)
     # duck-typed (any model exposing .plan_token()), so plan never imports
     # noise
     cm_token = None if crossbar_model is None else \

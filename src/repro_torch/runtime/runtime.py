@@ -91,10 +91,15 @@ class Runtime:
         if positions is not None:
             kw["positions"] = self._tensor(positions)
         if extra:
-            if self.cfg.encoder_layers == 0 or set(extra) != {"embeds"}:
+            if mode == "decode":
+                raise ValueError(f"decode takes no modality inputs; got "
+                                 f"{sorted(extra)}")
+            if not (self.cfg.encoder_layers or self.cfg.frontend == "patch") \
+                    or set(extra) != {"embeds"}:
                 raise NotImplementedError(
                     f"{self.cfg.name}: modality inputs {sorted(extra)} are "
-                    f"not ported (an encoder-decoder takes 'embeds')")
+                    f"not ported (an encoder-decoder or a patch frontend "
+                    f"takes 'embeds')")
             kw["embeds"] = self._tensor(extra["embeds"], torch.float32)
         with torch.no_grad():
             logits, new_cache = self.model(self._tensor(tokens), ctx,
@@ -112,8 +117,9 @@ class Runtime:
 
     def apply(self, batch: dict, cache=None, mode: str = "train"):
         """The model forward: ``((logits, cache, aux), AdOpsReport)``;
-        ``batch`` holds ``tokens`` and optionally ``positions`` (and, for
-        an encoder-decoder outside decode, the frames ``embeds``)."""
+        ``batch`` holds ``tokens`` and optionally ``positions`` (and,
+        outside decode, an encoder-decoder's frames or a patch frontend's
+        embeddings as ``embeds``)."""
         extra = {k: v for k, v in batch.items()
                  if k not in ("tokens", "positions")}
         logits, new_cache, rep = self._forward(
@@ -125,8 +131,9 @@ class Runtime:
                 max_len: int):
         """Prompt forward writing a fresh ``max_len``-deep cache:
         ``((last_logits, cache), AdOpsReport)``.  ``tokens``: (B, plen);
-        an encoder-decoder takes its frames as ``extra={"embeds": (B, T,
-        D)}``."""
+        an encoder-decoder takes its frames, a patch frontend its patch
+        embeddings (cache rows before the prompt's) as ``extra={"embeds":
+        (B, T, D)}``."""
         cache = self.init_cache(len(tokens), max_len)
         logits, cache, rep = self._forward(tokens, cache=cache,
                                            mode="prefill", extra=extra)
@@ -141,12 +148,10 @@ class Runtime:
 
     def decode(self, tokens, cache, extra: Optional[dict] = None):
         """One token for every sequence in ``cache``; ``extra`` must be
-        empty (an encoder-decoder reads its cross-KV from the cache)."""
-        if extra:
-            raise ValueError(f"decode takes no modality inputs; got "
-                             f"{sorted(extra)}")
+        empty (an encoder-decoder reads its cross-KV from the cache, a
+        patch frontend's rows are in it)."""
         logits, cache, rep = self._forward(tokens, cache=cache,
-                                           mode="decode")
+                                           mode="decode", extra=extra)
         return (logits[:, -1], cache), rep
 
     def mvm(self, x: torch.Tensor, layer: str):
@@ -154,13 +159,14 @@ class Runtime:
         AdOpsReport)``.  ``layer`` is a QuantState-style name: with an
         absolute depth (``layer_3/attn/wq``), or an encoder-decoder's
         (``enc/attn/wq``, ``dec/xattn/wk``, ``frontend/frame_proj``),
-        whose stacked families resolve to depth 0 as in the reference."""
+        whose stacked families resolve to depth 0 as in the reference, or
+        a frontend's (``frontend/patch_proj``)."""
         parts = layer.split("/")
         if parts[0].startswith("layer_"):
             parts = ["layers", parts[0].split("_", 1)[1], *parts[1:]]
         elif parts[0] in ("enc", "dec") and self.cfg.encoder_layers > 0:
             parts = [parts[0], "0", *parts[1:]]
-        elif parts[0] != "frontend" or self.cfg.encoder_layers == 0:
+        elif parts[0] != "frontend" or self.cfg.frontend == "none":
             raise KeyError(f"no layer {layer!r} in the model")
         path = ".".join(parts)
         try:

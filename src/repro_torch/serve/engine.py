@@ -26,11 +26,13 @@ block pool and per-request attribution of each call's ``AdOpsReport``.
   hybrid (jamba) pages its attention layers' K/V and keeps its mamba
   state in the slots; prefix reuse is off for it too.
 * Modality inputs come from ``extra_inputs(batch, seq)``, a dict of extra
-  batch entries (an encoder-decoder's frames, ``embeds``).  An
-  encoder-decoder's prefill gets pages for ``max(prompt bucket, frames)``
-  rows, so its cross-KV rows have pages; a decode step writes back only
-  the self-KV block it touched (the cross-KV is static).  Prefix reuse is
-  off for it.
+  batch entries (an encoder-decoder's frames or a patch frontend's
+  embeddings, ``embeds``).  An encoder-decoder's prefill gets pages for
+  ``max(prompt bucket, frames)`` rows, so its cross-KV rows have pages; a
+  decode step writes back only the self-KV block it touched (the cross-KV
+  is static).  A patch frontend's F rows come before the prompt's in the
+  cache: its prefill writes ``F + bucket`` rows, and decoding resumes
+  there.  Prefix reuse is off for both.
 * A prompt is left-padded into its bucket, and a recurrent prefill steps
   its state over the padding tokens too, as the reference's does.
 * Per-request metering: prefill ops go to their request exactly, a decode
@@ -66,7 +68,7 @@ class Request:
     ad_ops: float = 0.0
     prefill_ad_ops: float = 0.0
     reused_tokens: int = 0
-    cache_len: int = 0                  # resident tokens (incl. padding)
+    cache_len: int = 0                  # resident rows (pads, frontend)
     block_table: list = dataclasses.field(default_factory=list)
 
     @property
@@ -213,9 +215,12 @@ class ServeEngine:
         toks = np.zeros((1, padded), np.int32)
         toks[0, -plen:] = r.prompt[-plen:]   # left-pad into the bucket
         extra = self.extra_inputs(1, padded)
-        # an encoder-decoder's frames are its cross-KV rows: pages for them
-        rows = max(padded, int(extra["embeds"].shape[1])) \
-            if "embeds" in extra else padded
+        n_extra = int(extra["embeds"].shape[1]) if "embeds" in extra else 0
+        # a patch frontend's rows prefix the decoder sequence; an
+        # encoder-decoder's frames are its cross-KV rows: pages for either
+        encdec = self.cfg.encoder_layers > 0
+        total = padded + (0 if encdec else n_extra)
+        rows = max(total, n_extra if encdec else 0)
         bs = self.block_size
 
         reuse_n, keys = 0, []
@@ -252,7 +257,7 @@ class ServeEngine:
                                      new_blks, new_pages)
             if keys:
                 self.kv.register_prefix(keys, r.block_table)
-        r.cache_len = padded
+        r.cache_len = total
 
         nxt = self._sample(last_logits, np.array([r.temperature]))
         r.first_token_t = time.perf_counter()

@@ -568,6 +568,51 @@ def test_kernels_equal_plain_at_jamba_x_proj(card, m):
         acc) == 0
 
 
+# glm4-9b's wk/wv (two KV heads) and untied lm_head, and internvl2-76b's
+# w_gate/w_up at d = 8,192
+DENSE_KN = [(4096, 256), (4096, 151552), (8192, 28672)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", DENSE_KN, ids=lambda v: str(v))
+@pytest.mark.parametrize("m", [1, 4])
+def test_kernels_equal_plain_at_glm4_and_internvl2_shapes(card, m, k, n):
+    """K1 (bf16 weights, auto-ranged: the TMA body at these M) and K3
+    bit for bit against their plain versions on integer operands at decode
+    rows, ops equal (K3's plain version 8,192 columns at a time: its
+    unpacked weight planes take 32 bytes a weight)."""
+    from repro_torch.kernels.xbar_mvm import kernel as k3
+    from repro_torch.kernels.xbar_mvm.ref import xbar_mvm_ref
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-8, 9, (m, k)).astype(
+        np.float32)).to(card)
+    w = torch.from_numpy(rng.integers(-8, 9, (k, n)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    p = make_params(delta_r1=1.0, n_r1=6, n_r2=6, m=4, signed=True,
+                    device=card)
+    s = pack_scalars(p, torch.tensor(0.5), card)
+    kw = dict(_regs(p), auto_range=True)
+    y, ops = k1.trq_group_mvm_cuda(a, w, s, **kw)
+    y_r, ops_r = trq_group_mvm_ref(a, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_r) and int(ops) == int(ops_r)
+    del a, w, y_r
+
+    a_mask, w_mask = _xbar_operands(rng, card, m, k, n)
+    s3, kw3 = _xbar_kwargs(card, dict(delta_r1=1.0, n_r1=6, n_r2=6, m=4))
+    acc, ops3, per = k3.xbar_mvm_cuda(a_mask, w_mask, s3, per_output=True,
+                                      **kw3)
+    total = 0
+    for c in range(0, n, 8192):
+        acc_r, ops_r, per_r = xbar_mvm_ref(
+            a_mask, w_mask[:, :, c:c + 8192].contiguous(), s3,
+            per_output=True, **kw3)
+        assert torch.equal(acc[:, c:c + 8192], acc_r)
+        assert torch.equal(per[:, c:c + 8192], per_r)
+        total += int(ops_r)
+    assert int(ops3) == total
+
+
 # the paper's CNNs on K3: (M, K, N) of LeNet-5's conv0 at 256 images
 # (200,704 rows, N = 6 of a 32-column tile, K = 25 in one part-filled
 # group), decode-sized rows of the narrow layers, ResNet-20's widest convs

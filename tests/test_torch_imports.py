@@ -56,7 +56,9 @@ def test_the_walk_sees_the_port():
                 "models/moe.py", "configs/granite_moe_3b_a800m.py",
                 "models/mamba.py", "configs/jamba_v0_1_52b.py",
                 "core/sar_adc.py", "core/coding.py", "pim/mapping.py",
-                "models/cnn.py", "data/synthetic.py"):
+                "models/cnn.py", "data/synthetic.py",
+                "configs/deepseek_7b.py", "configs/glm4_9b.py",
+                "configs/deepseek_67b.py", "configs/internvl2_76b.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 

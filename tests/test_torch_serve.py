@@ -147,25 +147,15 @@ def test_launch_serve_cli_runs_on_cpu(capsys):
     assert "served 3 requests, 9 tokens" in out
 
 
-# the reference configs whose fields mark a recurrent mixer (rwkv6, jamba's
-# mamba), an encoder (whisper) or a patch frontend (internvl2), and the
-# all-attention ones (llama; the MoE decoders granite and arctic)
-GATE_ARCHS = ["llama3.2-3b", "rwkv6-7b", "jamba-v0.1-52b", "whisper-medium",
+# the configs whose fields mark a recurrent mixer (rwkv6, jamba's mamba),
+# an encoder (whisper) or a patch frontend (internvl2), and the
+# all-attention ones (the dense decoders; the MoE decoders granite and
+# arctic)
+GATE_ARCHS = ["llama3.2-3b", "deepseek-7b", "glm4-9b", "deepseek-67b",
+              "rwkv6-7b", "jamba-v0.1-52b", "whisper-medium",
               "internvl2-76b", "granite-moe-3b-a800m", "arctic-480b"]
-ATTN_ONLY = ("llama3.2-3b", "granite-moe-3b-a800m", "arctic-480b")
-
-
-def _port_config(arch):
-    """The reference's smoke config of ``arch``, field for field, as a port
-    ``ModelConfig`` (the gate is checked on archs the port's registry does
-    not hold too, internvl2's)."""
-    import dataclasses
-    from repro_torch.configs.base import ModelConfig, TRQConfig
-    jcfg = jget_config(arch, smoke=True)
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(ModelConfig)}
-    kw["trq"] = TRQConfig(**dataclasses.asdict(jcfg.trq))
-    return jcfg, ModelConfig(**kw)
+ATTN_ONLY = ("llama3.2-3b", "deepseek-7b", "glm4-9b", "deepseek-67b",
+             "granite-moe-3b-a800m", "arctic-480b")
 
 
 @pytest.mark.parametrize("arch", GATE_ARCHS)
@@ -176,7 +166,7 @@ def test_prefix_reuse_gate_matches_the_reference(arch):
     import types
     from repro.serve.engine import _attn_only as jattn_only
     from repro_torch.serve.engine import _attn_only
-    jcfg, cfg = _port_config(arch)
+    jcfg, cfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
     assert _attn_only(cfg) == jattn_only(jcfg) == (arch in ATTN_ONLY)
     stub = types.SimpleNamespace(cfg=cfg, plan=None, quant_state=None,
                                  device=torch.device("cpu"))

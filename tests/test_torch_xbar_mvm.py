@@ -131,9 +131,37 @@ def test_weight_packing_by_column_blocks(monkeypatch):
     rng = np.random.default_rng(0)
     u = torch.from_numpy(rng.integers(0, 256, (300, 10)).astype(np.int32))
     whole = pack_weight_planes(u, 8)
-    monkeypatch.setattr(ops, "PACK_COLS", 4)
+    monkeypatch.setattr(ops, "PACK_WEIGHTS", 4 * 300)
     assert torch.equal(pack_weight_planes(u, 8), whole)
     assert torch.equal(whole.permute(0, 2, 1, 3), pack_planes(u.t(), 8))
+
+
+@pytest.mark.parametrize("k", [300, 1000])
+def test_programming_blocks_hold_a_bounded_number_of_weights(monkeypatch,
+                                                             k):
+    """A packing block holds at most ``PACK_WEIGHTS`` weights whatever K
+    is (whole columns, at least one): a block of a fixed number of columns
+    took 32 GB of int64 temporaries at K = 28,672.  ``bit_exact_weights``
+    programs block by block, so its temporaries are a block's too, and its
+    scale, masks and column sums equal those of one whole-matrix pass."""
+    from repro_torch.kernels.xbar_mvm import ops
+    from repro_torch.pim.backend import bit_exact_weights
+    from repro_torch.pim.crossbar import PimConfig
+    rng = np.random.default_rng(k)
+    w = torch.from_numpy(rng.standard_normal((k, 50)).astype(np.float32))
+    whole = bit_exact_weights(w, PimConfig())
+    rows = []
+    pack = ops.pack_planes
+
+    def record(x, bits):
+        rows.append(x.shape[0] * x.shape[1])
+        return pack(x, bits)
+    monkeypatch.setattr(ops, "pack_planes", record)
+    monkeypatch.setattr(ops, "PACK_WEIGHTS", 5000)
+    blocked = bit_exact_weights(w, PimConfig())
+    assert max(rows) <= max(5000, k) and len(rows) == -(-50 // (5000 // k))
+    for a, b in zip(blocked, whole):
+        assert torch.equal(a, b)
 
 
 def test_masks_in_ops_total_out(rng):
