@@ -335,9 +335,38 @@ which fails the run on any error:
            batch-4 decode step and one 64-token prefill (host clock), the
            decode step's ``torch.profiler`` split on each datapath, and
            the seconds by stage.
+17. train  llama3.2-3b at every width and depth (3,212,749,824
+           parameters) as the trainer takes it: f32 master weights and
+           f32 AdamW moments from the port's seeded init, bf16 compute,
+           the config's ``remat="block"``, QAT on ``fake_quant`` through
+           its straight-through estimator, 12 steps of 2 x 256 tokens of
+           the port's ``TokenStream`` (lr 3e-4 after a 1-step warmup).
+           Fails unless every loss and gnorm is finite, the mean loss of
+           the last 3 steps is below that of the first 3 (the reference's
+           own test) and every step's A/D ops equal the closed form,
+           78,920,024,064 (7 ops a conversion, one conversion per 128-row
+           group and output of the 28 layers' projections, forward only:
+           the rematerialised recompute counts none, the tied logits take
+           none).  Then the trained weights in bf16 on ``pallas``: one
+           64-token prefill must launch K1 once per planned projection
+           (196) with A/D ops equal to the closed form, and hold against
+           ``fake_quant`` at the phase-4 bar.  Then the model cut to 2
+           layers, every width kept: 6 steps straight against 3, a
+           checkpoint in the reference's format (7.14 GB of params, m and
+           v, in a temporary directory removed after), a restore into a
+           Runtime built from other weights and 3 more, held at rtol 1e-5,
+           atol 1e-6 (the straight run goes twice first: if the card's
+           backward is not bitwise repeatable the check runs under
+           ``torch.use_deterministic_algorithms(True)`` and says so).
+           Readings: step seconds (host clock) split into forward+backward
+           and optimizer, tokens/s, one step's ``torch.profiler`` split
+           (the quantizer, the auto-range fit, the f32 einsums, every GEMM
+           kernel, attention, the optimizer, idle share), peak memory, the
+           checkpoint's bytes and write and read seconds, the phase's
+           seconds.
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
-12, 13, 14 and 16 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
+12, 13, 14, 16 and 17 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
 calibration of phase 8 for both of K2's entries, phase 15 for all three)
 and read just after; launches that compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -483,6 +512,12 @@ DENSE_CHECKS = [(m, k, n) for m in DENSE_MS for k, n in DENSE_KN] + [
 DENSE_PATH = sorted([(m, k, n) for m in (4, 64) for k, n in DENSE_KN]
                     + [(m, k, n) for m in (1, 4) for k, n in DENSE_HEADS])
 DENSE_PLAIN_TOKENS = 16            # phase 16: the plain-K3 check's prefill
+TRAIN_STEPS = 12                   # phase 17: full-width QAT steps
+TRAIN_BATCH, TRAIN_SEQ = 2, 256    # phase 17: tokens a step, 512
+TRAIN_PARAMS = 3_212_749_824       # llama3.2-3b, tied embeddings
+TRAIN_AD_OPS = 78_920_024_064      # 7 x 786,432 x 28 x 512, forward only
+RESUME_LAYERS = 2                  # phase 17: the exact-resume cut
+DEPLOY_TOKENS = 64                 # phase 17: the deployed prefill
 ROUTER_MARGIN = 1e-6               # phase 13: k-th less (k+1)-th probability
 ROUTER_REL_BAR = 2e-2              # phase 13: bf16 MoE layer against f64
 WKV_TOL = 1e-4                     # phase 11: scan against recurrence
@@ -1003,13 +1038,9 @@ def _device_us(e) -> float:
 
 def profile_forward(torch, fn) -> dict:
     """``torch.profiler`` over one call of ``fn`` (warmed first): the host
-    clock of the call, the device's busy time (the union of its kernel and
-    memset intervals) and idle share, device time by span (``K1`` from its
-    kernels' names; the labelled spans of :func:`labelled_spans`) and the
-    ten kernels that took longest.  ``K3`` is summed from its kernels'
-    names the same way.  ``measured`` is False when the
-    profiler saw no device activity."""
-    from torch.autograd import DeviceType
+    clock of the call and :func:`device_split`'s readings, with the
+    labelled spans of :func:`labelled_spans` and K1's and K3's kernels by
+    name."""
     from torch.profiler import ProfilerActivity, profile
     with labelled_spans(torch):
         fn()
@@ -1020,10 +1051,22 @@ def profile_forward(torch, fn) -> dict:
             fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.events()
     labels = ("projections", "pre-fit", "attention", "wkv", "norm",
               "cross-attention", "encoder", "assemble", "write-back", "moe",
               "ssm")
+    return device_split(prof.events(), wall_ms, labels,
+                        dict(k1=r"trq_group_mvm", k3=r"xbar_mvm"))
+
+
+def device_split(events, wall_ms: float, labels, kernels: dict) -> dict:
+    """A profiler window's device readings: the busy time (the union of
+    the kernel and memset intervals) and idle share against ``wall_ms``,
+    the device time under each labelled span, the time and count of the
+    kernels whose names match each pattern of ``kernels`` (``{key:
+    regex}``: ``<key>_ms``, ``<key>_kernels``), and the ten kernels that
+    took longest.  ``measured`` is False when the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and e.name not in labels             # the spans' device mirrors
            and not getattr(e, "is_user_annotation", False)]
@@ -1039,14 +1082,12 @@ def profile_forward(torch, fn) -> dict:
     for e in dev:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    k1 = [v for k, v in by_name.items() if "trq_group_mvm" in k]
-    k3 = [v for k, v in by_name.items() if "xbar_mvm" in k]
     out = dict(measured=True, wall_ms=wall_ms, device_busy_ms=busy / 1e3,
-               device_idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms),
-               k1_ms=sum(us for _, us in k1) / 1e3,
-               k1_kernels=sum(n for n, _ in k1),
-               k3_ms=sum(us for _, us in k3) / 1e3,
-               k3_kernels=sum(n for n, _ in k3))
+               device_idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms))
+    for key, pattern in kernels.items():
+        hits = [v for k, v in by_name.items() if re.search(pattern, k)]
+        out[f"{key}_ms"] = sum(us for _, us in hits) / 1e3
+        out[f"{key}_kernels"] = sum(n for n, _ in hits)
     for label in labels:
         out[f"{label}_ms"] = sum(
             _device_us(e) for e in events
@@ -3575,6 +3616,331 @@ def cnn_phase(torch, rec1: dict, rec2: dict, rec3: dict,
                 checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: train full-width llama3.2-3b
+# ---------------------------------------------------------------------------
+
+def train_config():
+    """llama3.2-3b at every width and depth as the trainer takes it: f32
+    master weights, bf16 compute, the config's own ``remat="block"``, QAT
+    on ``fake_quant``."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config(ARCH).replace(pim_backend="fake_quant")
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (N_LAYERS, 3072,
+                                                           128256)
+    assert (cfg.param_dtype, cfg.dtype, cfg.remat) == ("float32",
+                                                       "bfloat16", "block")
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_optimizer(torch, seconds: list):
+    """Time each optimizer update (host clock between synchronisations)
+    and label it ``optimizer`` for the profiler: wraps
+    ``train.loop.make_optimizer`` for the Runtimes built inside."""
+    from repro_torch.train import loop as tloop
+    real = tloop.make_optimizer
+
+    def make(tc, cfg):
+        init, update = real(tc, cfg)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("optimizer"):
+                out = update(*a)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return init, timed
+    tloop.make_optimizer = make
+    try:
+        yield
+    finally:
+        tloop.make_optimizer = real
+
+
+@contextlib.contextmanager
+def train_spans(torch):
+    """``record_function`` spans over the fake_quant datapath's pieces a
+    train step runs (forward, and again in the rematerialised backward):
+    the quantizer and its op count, the auto-range fit, the f32 per-group
+    einsums, attention."""
+    from repro_torch.models import attention
+    from repro_torch.pim import crossbar
+    targets = [(crossbar, "trq_quant", "quantizer"),
+               (crossbar, "trq_ad_ops", "quantizer"),
+               (crossbar, "auto_range_fit_grouped", "auto-range"),
+               (crossbar, "_group_psums", "einsum"),
+               (attention, "full_attention", "attention"),
+               (attention, "chunked_attention", "attention")]
+    saved = []
+
+    def wrap(fn, label):
+        def inner(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return inner
+    for mod, name, label in targets:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrap(fn, label))
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def profile_train_step(torch, fn) -> dict:
+    """``torch.profiler`` over one train step ``fn``: host clock, device
+    busy time and idle share, device time in the labelled spans (the
+    auto-range fit's own einsum counts in ``einsum`` too), the GEMM
+    kernels by name (forward, backward and recompute: the f32
+    einsums' and the logits'), and the ten longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with train_spans(torch), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return device_split(prof.events(), wall_ms, (
+        "quantizer", "auto-range", "einsum", "attention", "optimizer"),
+        dict(gemm=r"(?i)gemm|xmma|cutlass"))
+
+
+def train_steps(torch, rt, params, opt, stream, steps, device) -> tuple:
+    """Run ``steps`` train steps; returns (params, opt, one row a step:
+    loss, gnorm, lr, ad_ops, host seconds)."""
+    rows = []
+    for i in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (params, opt, m), _ = rt.train_step(params, opt,
+                                            stream.batch_at(i, device), i)
+        torch.cuda.synchronize()
+        rows.append(dict(step=i, loss=float(m["loss"]),
+                         gnorm=float(m["gnorm"]), lr=float(m["lr"]),
+                         ad_ops=int(m["ad_ops"]),
+                         s=time.perf_counter() - t0))
+    return params, opt, rows
+
+
+def exact_resume(torch, cfg, tc, device: str = "cuda") -> dict:
+    """``cfg`` cut to ``RESUME_LAYERS`` layers, every width kept: six
+    steps straight against three, a checkpoint in the reference's format
+    (a temporary directory, removed after), a restore into a Runtime built
+    from other weights and three more; parameters at rtol 1e-5, atol 1e-6
+    (the reference's resume bars).  The straight run goes twice first: if
+    the card's backward is not bitwise repeatable the check runs under
+    ``torch.use_deterministic_algorithms(True)``, and says so."""
+    import shutil
+    import tempfile
+    from repro_torch import runtime
+    from repro_torch.ckpt.checkpoint import (restore_train_state,
+                                             save_train_state)
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.registry import init
+    cut = cfg.replace(n_layers=RESUME_LAYERS)
+    stream = TokenStream(cut.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
+
+    def fresh(seed=0):
+        return runtime.compile(cut, init(cut, seed=seed, device=device),
+                               device=device, plan=None, tc=tc)
+
+    def straight():
+        rt = fresh()
+        p, _, _ = train_steps(torch, rt, rt.params, rt.opt_init(), stream,
+                              range(6), device)
+        return {k: v.detach().clone() for k, v in p.items()}
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+    out = dict(layers=RESUME_LAYERS)
+    ref = straight()
+    out["repeatable"] = same(ref, straight())
+    if not out["repeatable"]:
+        log("  the card's backward is not bitwise repeatable: the resume "
+            "check runs under torch.use_deterministic_algorithms(True)")
+        torch.use_deterministic_algorithms(True)
+        ref = straight()
+    try:
+        rt = fresh()
+        p, o, _ = train_steps(torch, rt, rt.params, rt.opt_init(), stream,
+                              range(3), device)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save_train_state(tmp, 3, p, o, cut)
+            out["write_s"] = time.perf_counter() - t0
+            out["bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                               for f in os.listdir(path))
+            del rt, p, o
+            gc.collect()
+            rt = fresh(seed=9)               # other weights: all from disk
+            t0 = time.perf_counter()
+            p, o, at = restore_train_state(tmp, rt.params, rt.opt_init(),
+                                           cut)
+            torch.cuda.synchronize()
+            out["read_s"] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        p, o, _ = train_steps(torch, rt, p, o, stream, range(at, 6), device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worst = 0.0
+    with torch.no_grad():
+        for k, want in ref.items():
+            err = ((p[k] - want).abs() - (1e-6 + 1e-5 * want.abs())).max()
+            worst = max(worst, float(err))
+    out.update(bitwise=same(p, ref), worst_excess=worst,
+               deterministic_mode=not out["repeatable"])
+    log(f"  exact resume at {RESUME_LAYERS} layers: checkpoint "
+        f"{out['bytes'] / 1e9:.2f} GB written in {out['write_s']:.1f} s, "
+        f"read in {out['read_s']:.1f} s; 3 + 3 steps against 6 straight: "
+        f"bitwise {out['bitwise']}, worst excess over rtol 1e-5 / atol "
+        f"1e-6 {worst:.3e}; backward repeatable {out['repeatable']}")
+    if worst > 0:
+        raise AssertionError("resumed training left the straight run")
+    return out
+
+
+def train_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
+    """Phase 17 (see the module docstring)."""
+    import numpy as np
+    from repro_torch import runtime
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.launch.steps import make_train_config
+    from repro_torch.models.registry import build_model, init
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tc = make_train_config(cfg.name, total_steps=TRAIN_STEPS,
+                           warmup_steps=1)
+    rows_per_step = TRAIN_BATCH * TRAIN_SEQ
+    want_ops = 7 * conversions_per_token(cfg) * cfg.n_layers * rows_per_step
+    if cfg.name == ARCH and cfg.n_layers == N_LAYERS and \
+            want_ops != TRAIN_AD_OPS:
+        raise AssertionError(f"closed form {want_ops} != {TRAIN_AD_OPS}")
+    opt_s: list = []
+    with timed_optimizer(torch, opt_s):
+        rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
+                             device=device, plan=None, tc=tc)
+        n_params = sum(v.numel() for v in rt.params.values())
+        if cfg.name == ARCH and cfg.n_layers == N_LAYERS and \
+                n_params != TRAIN_PARAMS:
+            raise AssertionError(f"{n_params} parameters")
+        opt = rt.opt_init()
+        gib0 = torch.cuda.memory_allocated() / 2 ** 30
+        log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+            f"{n_params:,} parameters in f32 with f32 m and v "
+            f"({gib0:.2f} GiB allocated), bf16 compute, remat "
+            f"{cfg.remat!r}, {cfg.pim_backend}; {TRAIN_STEPS} steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {tc.learning_rate} "
+            f"(warmup {tc.warmup_steps})")
+        stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        params, opt, rows = train_steps(torch, rt, rt.params, opt, stream,
+                                        range(TRAIN_STEPS), device)
+        for r, o in zip(rows, opt_s):
+            r["optimizer_s"] = o
+            log(f"  step {r['step']:2d}: loss {r['loss']:.4f}, gnorm "
+                f"{r['gnorm']:.4f}, lr {r['lr']:.3e}, ad_ops "
+                f"{r['ad_ops']:,}, {r['s']:.3f} s ({o:.3f} s optimizer)")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # a 13th step, past the gated run, under the profiler
+        prof = profile_train_step(torch, lambda: rt.train_step(
+            params, opt, stream.batch_at(TRAIN_STEPS, device), TRAIN_STEPS))
+    losses = [r["loss"] for r in rows]
+    finite = all(np.isfinite([r["loss"], r["gnorm"]]).all() for r in rows)
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    ops_ok = all(r["ad_ops"] == want_ops for r in rows)
+    steady = rows[2:]                       # past the first steps' warm-up
+    step_s = float(np.median([r["s"] for r in steady]))
+    opt_med = float(np.median([r["optimizer_s"] for r in steady]))
+    out = dict(params=n_params, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, rows=rows, loss_first3=first, loss_last3=last,
+               ad_ops_per_step=want_ops, step_s=step_s,
+               forward_backward_s=step_s - opt_med, optimizer_s=opt_med,
+               tokens_per_s=rows_per_step / step_s, peak_gib=peak,
+               gib_after_init=gib0, profile=prof)
+    log(f"  loss {first:.4f} (mean of the first 3) -> {last:.4f} (last 3); "
+        f"every step finite {finite}; ad_ops {want_ops:,} a step (closed "
+        f"form) on every step {ops_ok}; median step {step_s:.3f} s "
+        f"(forward+backward {step_s - opt_med:.3f} s, optimizer "
+        f"{opt_med:.3f} s), {rows_per_step / step_s:.1f} tokens/s; peak "
+        f"{peak:.2f} GiB ({card_line()})")
+    if prof["measured"]:
+        log(f"  profile of one step: host {prof['wall_ms']:.1f} ms, device "
+            f"busy {prof['device_busy_ms']:.1f} ms (idle share "
+            f"{prof['device_idle_share']:.3f}); quantizer "
+            f"{prof['quantizer_ms']:.1f} ms, auto-range "
+            f"{prof['auto-range_ms']:.1f} ms, f32 einsums (forward and "
+            f"recompute) {prof['einsum_ms']:.1f} ms, GEMM kernels (all) "
+            f"{prof['gemm_ms']:.1f} ms in {prof['gemm_kernels']}, "
+            f"attention {prof['attention_ms']:.1f} ms, optimizer "
+            f"{prof['optimizer_ms']:.1f} ms")
+        for t in prof["top_kernels"]:
+            log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
+    else:
+        log(f"  profile of one step: device time not measured; host "
+            f"{prof['wall_ms']:.1f} ms")
+    if not finite or not last < first:
+        raise AssertionError("training loss not finite or not falling")
+    if not ops_ok:
+        raise AssertionError(f"ad_ops a step {[r['ad_ops'] for r in rows]}"
+                             f", closed form {want_ops}")
+
+    # deploy: the trained weights in bf16 on pallas, through K1
+    del opt
+    gc.collect()
+    t1 = time.perf_counter()
+    serve_cfg = cfg.replace(param_dtype="bfloat16", pim_backend="pallas",
+                            remat="none")
+    dtypes = {k: v.dtype for k, v in build_model(serve_cfg).state_dict(
+        ).items()}
+    state = {k: v.detach().to(dtypes[k]) for k, v in params.items()}
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    srt = runtime.compile(serve_cfg, state, device=device)
+    del state
+    warm(srt)
+    prompt = stream.batch_at(10 ** 6, "cpu")["tokens"][0, :DEPLOY_TOKENS]
+    prompt = prompt.numpy().astype(np.int64)
+    k1.LAUNCHES = 0
+    (logits, _), rep = srt.prefill(prompt[None].astype(np.int32),
+                                   max_len=256)
+    torch.cuda.synchronize()
+    launches = k1.LAUNCHES
+    rec["launches_by_path"]["llama3.2-3b train"] = launches
+    want_pre = 7 * conversions_per_token(cfg) * cfg.n_layers * DEPLOY_TOKENS
+    log(f"  deployed on pallas: one {DEPLOY_TOKENS}-token prefill launched "
+        f"K1 {launches} times ({len(srt.plan)} planned projections), ad_ops "
+        f"{rep.total():.0f} (closed form {want_pre}), logits finite "
+        f"{bool(torch.isfinite(logits).all())}")
+    if launches != len(srt.plan) or rep.total() != want_pre or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the deployed prefill missed K1 or its closed "
+                             "form")
+    out["deploy"] = dict(launches=launches, ad_ops=rep.total())
+    out["deploy"].update(fake_quant_check(torch, srt, prompt, 256))
+    out["deploy_s"] = time.perf_counter() - t1
+    del srt
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    out["resume"] = exact_resume(torch, cfg, tc, device)
+    out["resume_s"] = time.perf_counter() - t2
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 17 in {out['phase_s']:.1f} s (resume check "
+        f"{out['resume_s']:.1f} s, deployment {out['deploy_s']:.1f} s)")
+    return out
+
+
 def pallas_config():
     from repro_torch.models.registry import get_config
     cfg = get_config(ARCH).replace(param_dtype="bfloat16",
@@ -3585,6 +3951,9 @@ def pallas_config():
 
 def main(argv) -> int:
     t_start = time.perf_counter()
+    # cuBLAS's workspace as PyTorch sizes it on Hopper, set before the
+    # first handle: phase 17 may need deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -3718,6 +4087,12 @@ def main(argv) -> int:
         t16 = time.perf_counter()
         dense[arch] = dense_phase(torch, rec, rec3, cfg16)
         dense[arch]["phase_s"] = time.perf_counter() - t16
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17: train full-width {ARCH} on fake_quant, resume exactly, "
+        f"deploy on pallas ({torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB still allocated)")
+    train = train_phase(torch, rec, train_config())
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -3746,6 +4121,7 @@ def main(argv) -> int:
     log(json.dumps({"jamba": jamba}))
     log(json.dumps({"cnn": cnn}))
     log(json.dumps({"dense": dense}))
+    log(json.dumps({"train": train}))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -1,4 +1,4 @@
-"""Reference weights -> the port's state dict.
+"""Reference weights <-> the port's state dict.
 
 ``from_jax(params_np, cfg)`` takes the JAX package's parameter tree as
 nested dicts of numpy arrays (the caller does ``jax.tree.map(np.asarray,
@@ -8,6 +8,13 @@ of the period becomes ``layers.{p * period + i}``; an encoder-decoder's
 ``enc``/``dec`` stacks (layer axis 0) become ``enc.{i}``/``dec.{i}``.
 Layouts are shared (``(K, N)`` weights), so every leaf converts as it is;
 ``cnn_from_jax`` does the same for the paper's CNNs.
+
+The inverse, ``to_jax(state, cfg)``, stacks the per-layer tensors back
+over periods.  Its flat form, :func:`stack_ref` (keys are the reference's
+tree paths, ``periods/layer_0/attn/wq/w``), and :func:`ref_groups` (each
+reference leaf with the port tensors it stacks) are what the optimizer
+and the checkpoints use; ``opt_to_jax``/``opt_from_jax`` map the
+optimizer state, which the port already keeps in the reference's layout.
 """
 from __future__ import annotations
 
@@ -61,3 +68,132 @@ def cnn_from_jax(params_np: dict, device=None) -> dict:
     CPU)."""
     return {name: {k: _tensor(v).to(device) for k, v in leaf.items()}
             for name, leaf in params_np.items()}
+
+
+# ---------------------------------------------------------------------------
+# the port -> the reference's layout
+# ---------------------------------------------------------------------------
+
+def ref_path(name: str, cfg):
+    """A port state-dict name -> (the reference's tree path, the index
+    along that leaf's stacked axis or None): ``layers.{d}.attn.wq.w`` ->
+    (``periods/layer_{d % period}/attn/wq/w``, ``d // period``);
+    ``enc.{i}.*``/``dec.{i}.*`` -> (``enc/*``, ``i``); every other name
+    maps as it is."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        d = int(parts[1])
+        return "/".join([f"periods/layer_{d % cfg.period}", *parts[2:]]), \
+            d // cfg.period
+    if parts[0] in ("enc", "dec") and cfg.encoder_layers > 0:
+        return "/".join([parts[0], *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
+def ref_groups(names, cfg) -> dict:
+    """{reference path: [port names along its stacked axis]} (one name for
+    an unstacked leaf), in the order the reference flattens its tree
+    (dict keys sorted at every level)."""
+    groups: dict = {}
+    for name in names:
+        path, idx = ref_path(name, cfg)
+        groups.setdefault(path, []).append((idx, name))
+    return {path: [n for _, n in sorted(groups[path],
+                                        key=lambda t: t[0] or 0)]
+            for path in sorted(groups, key=lambda p: tuple(p.split("/")))}
+
+
+def stacked(path: str, cfg) -> bool:
+    """Whether the reference stacks the leaf at ``path`` over layers."""
+    head = path.split("/", 1)[0]
+    return head == "periods" or (head in ("enc", "dec")
+                                 and cfg.encoder_layers > 0)
+
+
+def stack_ref(state: dict, cfg, device="cpu") -> dict:
+    """The port's state -> {reference path: tensor} on ``device`` (the
+    host by default: a checkpoint's snapshot), stacked leaves rebuilt from
+    their members."""
+    out = {}
+    for path, names in ref_groups(state, cfg).items():
+        members = [state[n].detach().to(device) for n in names]
+        out[path] = torch.stack(members) if stacked(path, cfg) \
+            else members[0]
+    return out
+
+
+def unstack_ref(flat: dict, cfg) -> dict:
+    """Inverse of :func:`stack_ref`: {reference path: tensor} -> the port's
+    state dict (stacked leaves split along their first axis)."""
+    state = {}
+    for path, t in flat.items():
+        head, _, rest = path.partition("/")
+        if head == "periods":
+            lkey, _, rest = rest.partition("/")
+            i = int(lkey.rsplit("_", 1)[1])
+            for p in range(t.shape[0]):
+                state[f"layers.{p * cfg.period + i}.{rest.replace('/', '.')}"] \
+                    = t[p]
+        elif stacked(path, cfg):
+            for i in range(t.shape[0]):
+                state[f"{head}.{i}.{rest.replace('/', '.')}"] = t[i]
+        else:
+            state[path.replace("/", ".")] = t
+    return state
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:           # numpy has no bf16 of its own
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *heads, last = path.split("/")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = leaf
+    return tree
+
+
+def to_jax(state: dict, cfg) -> dict:
+    """The port's state dict -> the reference's parameter tree (nested
+    dicts of numpy arrays, bf16 as ``ml_dtypes.bfloat16``), the inverse of
+    :func:`from_jax`."""
+    return _nest({k: _numpy(v) for k, v in stack_ref(state, cfg).items()})
+
+
+def opt_to_jax(opt_state: dict) -> dict:
+    """The port's optimizer state (``train.optimizer``: ``m`` and ``v``
+    keyed by reference path, already stacked) -> the reference's
+    ``{"step", "m", "v"}`` tree of numpy arrays."""
+    return {"step": _numpy(opt_state["step"]),
+            "m": _nest({k: _numpy(v) for k, v in opt_state["m"].items()}),
+            "v": _nest({k: {"row": _numpy(v["row"]),
+                            "col": _numpy(v["col"])} if isinstance(v, dict)
+                        else _numpy(v) for k, v in opt_state["v"].items()})}
+
+
+def opt_from_jax(opt_np: dict, device=None) -> dict:
+    """Inverse of :func:`opt_to_jax`: a factored second moment is the
+    reference's ``{"row", "col"}`` dict under its leaf's path."""
+    def leaves(tree, prefix=""):
+        for key, val in tree.items():
+            path = f"{prefix}/{key}" if prefix else key
+            if isinstance(val, dict) and set(val) != {"row", "col"}:
+                yield from leaves(val, path)
+            else:
+                yield path, val
+
+    def tensor(a):
+        if isinstance(a, dict):
+            return {k: _tensor(v).to(device) for k, v in a.items()}
+        return _tensor(a).to(device)
+    return {"step": _tensor(opt_np["step"]).to(device),
+            "m": {k: tensor(v) for k, v in leaves(opt_np["m"])},
+            "v": {k: tensor(v) for k, v in leaves(opt_np["v"])}}

@@ -30,7 +30,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .attention import Attention, apply_cross_attention, encoder_kv
 from .layers import (MLP, Embed, LayerNorm, PimContext, PimLinear, cdtype,
-                     pdtype, sinusoid_at, sinusoid_pos)
+                     no_aux, pdtype, sinusoid_at, sinusoid_pos)
 
 STATIC_KEYS = ("xk", "xv")      # cache leaves written at prefill only
 
@@ -152,9 +152,10 @@ class EncDec(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None):
         """``embeds`` (B, T, D) frames for train/prefill; decode reads the
-        cross-KV from ``cache``.  Returns (logits f32, new_cache or None);
-        the prefill's cross-KV is zero-padded out to the cache's ``E`` rows
-        (kept in the compute dtype, as the reference keeps it)."""
+        cross-KV from ``cache``.  Returns (logits f32, new_cache or None,
+        aux 0.0 f32: no MoE layer); the prefill's cross-KV is zero-padded
+        out to the cache's ``E`` rows (kept in the compute dtype, as the
+        reference keeps it)."""
         if mode == "prefill_cont":
             raise NotImplementedError(
                 "enc-dec has no continued prefill (prefix reuse is off)")
@@ -165,7 +166,7 @@ class EncDec(nn.Module):
             logits, nc = self.decode_stack(tokens, ctx, xkv, cache=cache,
                                            mode=mode)
             nc.update(xk=cache["xk"], xv=cache["xv"])
-            return logits, nc
+            return logits, nc, no_aux(logits.device)
         if embeds is None:
             raise ValueError(f"{self.cfg.name}: {mode} needs the frame "
                              f"embeddings ('embeds')")
@@ -178,7 +179,7 @@ class EncDec(nn.Module):
                 pad = cache[key].shape[2] - t.shape[2]
                 nc[key] = torch.nn.functional.pad(
                     t, (0, 0, 0, 0, 0, pad)) if pad > 0 else t
-        return logits, nc
+        return logits, nc, no_aux(logits.device)
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

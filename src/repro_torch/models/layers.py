@@ -9,6 +9,7 @@ name, QuantState, plan and the A/D-op accumulator — travels explicitly in a
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -18,6 +19,11 @@ from ..configs.base import ModelConfig, TRQConfig
 from ..core.trq import TRQParams, make_params
 from ..pim.backend import get_backend, record_ad_ops, zero_ops
 from ..pim.plan import run_prepared
+
+
+def no_aux(device) -> torch.Tensor:
+    """The aux loss of a model without MoE layers: 0.0 in f32."""
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -41,7 +47,10 @@ class PimContext:
     leaves them the ambient one) and the running A/D-op total (a 0-dim
     int64 tensor on the device, so metering never syncs the host).  Each
     call's ops also go to the per-layer census when one is open
-    (``pim.backend.ad_ops_tally``)."""
+    (``pim.backend.ad_ops_tally``).  While :meth:`muted` is entered (a
+    rematerialised layer's recompute in backward) no ops are counted: a
+    step counts each forward conversion once, as the reference's traced
+    tally does."""
 
     def __init__(self, cfg: ModelConfig, backend: str, quant_state=None,
                  plan=None, device=None, crossbar_model=None):
@@ -51,10 +60,21 @@ class PimContext:
         self.plan = plan
         self.crossbar_model = crossbar_model
         self.ops = zero_ops(device)
+        self._muted = False
 
     def add_ops(self, ops: torch.Tensor, name: Optional[str] = None) -> None:
+        if self._muted:
+            return
         self.ops = self.ops + ops
         record_ad_ops(name, ops)
+
+    @contextlib.contextmanager
+    def muted(self):
+        prev, self._muted = self._muted, True
+        try:
+            yield self
+        finally:
+            self._muted = prev
 
 
 class PimLinear(nn.Module):

@@ -18,23 +18,31 @@ paged leaves, ``PAGED_KEYS``); the rest are O(1) per sequence.
 
 Modes: train | prefill | prefill_cont | decode.  Serving modes return only
 the last position's logits; with tied embeddings the logits are an f32
-``torch.matmul`` against the embedding table, as in the reference.
+``torch.matmul`` against the embedding table, as in the reference.  Every
+mode also returns the MoE layers' Switch loss summed in layer order (f32;
+0.0 without MoE layers).  In train mode with gradients on, ``cfg.remat``
+(``block``, ``full`` or ``names``) recomputes each layer in backward
+(``torch.utils.checkpoint``, non-reentrant) with A/D metering muted: the
+same numbers, each forward conversion counted once.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import Attention
 from .layers import (MLP, Embed, PimContext, PimLinear, RMSNorm, cdtype,
-                     pdtype)
+                     no_aux, pdtype)
 from .mamba import MambaMixer, d_inner
 from .moe import MoE
 from .rwkv6 import RWKV6TimeMix, dims as rwkv_dims
 
+REMAT = ("block", "full", "names")   # cfg.remat values that recompute
 LAYER_KINDS = (("attn", "mlp"), ("attn", "moe"), ("attn", "moe+mlp"),
                ("rwkv", "mlp"), ("mamba", "mlp"), ("mamba", "moe"))
 PAGED_KEYS = ("k", "v")         # cache leaves that scale with max_len
@@ -80,6 +88,7 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, ctx: PimContext, positions, cache=None,
                 cont: bool = False):
+        """Returns (x, new_cache, the Switch loss or None)."""
         eps = ctx.cfg.norm_eps
         h = self.norm1(x, eps)
         if self.mixer == "attn":
@@ -92,12 +101,11 @@ class DecoderLayer(nn.Module):
         x = x + o
         h = self.norm2(x, eps)
         if self.ffn == "mlp":
-            return x + self.mlp(h, ctx), new_cache
-        # the load-balancing loss is for training, which is not ported
-        mo, _ = self.moe(h)
+            return x + self.mlp(h, ctx), new_cache, None
+        mo, aux = self.moe(h)
         if self.ffn == "moe":
-            return x + mo, new_cache
-        return x + mo + self.mlp(h, ctx), new_cache   # arctic's order
+            return x + mo, new_cache, aux
+        return x + mo + self.mlp(h, ctx), new_cache, aux   # arctic's order
 
 
 class LM(nn.Module):
@@ -135,7 +143,8 @@ class LM(nn.Module):
         """``embeds`` (B, F, D): patch embeddings, projected at the
         parameter dtype by ``frontend/patch_proj`` and placed before the
         tokens (the reference's ``_embed_inputs``); positions then run
-        over all F + S rows.  Returns (logits f32, new_cache or None)."""
+        over all F + S rows.  Returns (logits f32, new_cache or None, aux
+        f32)."""
         cfg = self.cfg
         cont = mode == "prefill_cont"
         x = self.embed(tokens)
@@ -158,6 +167,9 @@ class LM(nn.Module):
                                          device=x.device)[None].expand(b, s)
         stacks: dict = {}
         new_len = None
+        aux = no_aux(x.device)
+        remat = mode == "train" and cfg.remat in REMAT and \
+            torch.is_grad_enabled()
         index = dict.fromkeys(STATE_KEYS, 0)  # depth among the same mixers
         for layer in self.layers:
             lc = None
@@ -167,7 +179,16 @@ class LM(nn.Module):
                 if layer.mixer == "attn":
                     lc["len"] = cache["len"]
             index[layer.mixer] += 1
-            x, nc = layer(x, ctx, positions, cache=lc, cont=cont)
+            if remat:
+                x, nc, a = checkpoint(
+                    layer, x, ctx, positions, cache=lc, cont=cont,
+                    use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        ctx.muted()))
+            else:
+                x, nc, a = layer(x, ctx, positions, cache=lc, cont=cont)
+            if a is not None:
+                aux = aux + a
             if nc is not None:
                 for key, val in nc.items():
                     if key == "len":
@@ -186,7 +207,7 @@ class LM(nn.Module):
             new_cache = {key: torch.stack(v) for key, v in stacks.items()}
             if new_len is not None:
                 new_cache["len"] = new_len
-        return logits, new_cache
+        return logits, new_cache, aux
 
 
 def paged_keys(cfg: ModelConfig) -> tuple:

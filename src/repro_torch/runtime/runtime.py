@@ -9,7 +9,13 @@ per-layer ``QuantState``, the ``CrossbarModel`` of the simulated device,
 the weight-stationary ``PimPlan`` and the entry
 points ``prefill`` / ``prefill_cont`` / ``decode`` / ``apply`` / ``mvm``,
 each returning ``(out, AdOpsReport)``.  PyTorch runs eagerly, so there is
-nothing to jit; every entry point runs under ``torch.no_grad``.
+nothing to jit; every serving entry point runs under ``torch.no_grad``.
+
+Training (``opt_init``, ``train_step``) runs on the differentiable
+backends (``exact``, and ``fake_quant`` through its straight-through
+estimator) with no plan, as the reference's train CLI compiles it; it
+updates the model's parameters (``Runtime.params``) and the optimizer
+state in place, as the reference's ``donate=True``.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, TrainConfig
 from ..core.energy import adc_energy_pj
 from ..core.quant_state import QuantState, save_quant_state
 from ..device import resolve_device
@@ -30,6 +36,9 @@ from ..pim.plan import (PimPlan, check_plan, has_prepared, prepare_params,
                         quant_state_token)
 
 _UNSET = object()
+# the backends with a gradient path (the reference's train CLI's choices:
+# pallas and bit_exact have no VJP, noisy draws its faults once per plan)
+TRAIN_BACKENDS = ("exact", "fake_quant")
 
 
 class AdOpsReport(NamedTuple):
@@ -53,16 +62,21 @@ class Runtime:
     def __init__(self, cfg: ModelConfig, model, *, backend: str,
                  quant_state: Optional[QuantState], plan: Optional[PimPlan],
                  device: torch.device, plan_enabled: bool = True,
-                 crossbar_model: Optional[CrossbarModel] = None):
+                 crossbar_model: Optional[CrossbarModel] = None,
+                 tc: Optional[TrainConfig] = None):
         self.cfg = cfg
         self.model = model
+        self.tc = tc
+        self.params = dict(model.named_parameters())
+        self._train = None              # (train_step, opt_init), built once
+        self._step_ctx = None           # the PimContext of the running step
         self.backend = backend
         self.quant_state = quant_state
         self.plan = plan
         self.crossbar_model = crossbar_model
         self.device = device
         self._plan_enabled = plan_enabled
-        self.forward_calls = 0          # model forwards run by entry points
+        self.forward_calls = 0          # forwards run by serving entry points
 
     def __repr__(self) -> str:
         return (f"Runtime({self.cfg.name}, backend={self.backend!r}, "
@@ -100,12 +114,16 @@ class Runtime:
                     f"{self.cfg.name}: modality inputs {sorted(extra)} are "
                     f"not ported (an encoder-decoder or a patch frontend "
                     f"takes 'embeds')")
-            kw["embeds"] = self._tensor(extra["embeds"], torch.float32)
+            kw.update(self._modality(extra))
         with torch.no_grad():
-            logits, new_cache = self.model(self._tensor(tokens), ctx,
-                                           cache=cache, mode=mode, **kw)
+            logits, new_cache, aux = self.model(self._tensor(tokens), ctx,
+                                                cache=cache, mode=mode, **kw)
         self.forward_calls += 1
-        return logits, new_cache, AdOpsReport(ctx.ops)
+        return logits, new_cache, aux, AdOpsReport(ctx.ops)
+
+    def _modality(self, extra: dict) -> dict:
+        return {"embeds": self._tensor(extra["embeds"], torch.float32)} \
+            if "embeds" in extra else {}
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """The model's own zeroed cache (an encoder-decoder's cross-KV is
@@ -122,10 +140,10 @@ class Runtime:
         embeddings as ``embeds``)."""
         extra = {k: v for k, v in batch.items()
                  if k not in ("tokens", "positions")}
-        logits, new_cache, rep = self._forward(
+        logits, new_cache, aux, rep = self._forward(
             batch["tokens"], cache=cache, mode=mode,
             positions=batch.get("positions"), extra=extra)
-        return (logits, new_cache, 0.0), rep
+        return (logits, new_cache, aux), rep
 
     def prefill(self, tokens, extra: Optional[dict] = None, *,
                 max_len: int):
@@ -135,23 +153,23 @@ class Runtime:
         embeddings (cache rows before the prompt's) as ``extra={"embeds":
         (B, T, D)}``."""
         cache = self.init_cache(len(tokens), max_len)
-        logits, cache, rep = self._forward(tokens, cache=cache,
-                                           mode="prefill", extra=extra)
+        logits, cache, _, rep = self._forward(tokens, cache=cache,
+                                              mode="prefill", extra=extra)
         return (logits[:, -1], cache), rep
 
     def prefill_cont(self, tokens, positions, cache):
         """Continued prefill against a warm cache (prefix-reuse path)."""
-        logits, cache, rep = self._forward(tokens, cache=cache,
-                                           mode="prefill_cont",
-                                           positions=positions)
+        logits, cache, _, rep = self._forward(tokens, cache=cache,
+                                              mode="prefill_cont",
+                                              positions=positions)
         return (logits[:, -1], cache), rep
 
     def decode(self, tokens, cache, extra: Optional[dict] = None):
         """One token for every sequence in ``cache``; ``extra`` must be
         empty (an encoder-decoder reads its cross-KV from the cache, a
         patch frontend's rows are in it)."""
-        logits, cache, rep = self._forward(tokens, cache=cache,
-                                           mode="decode", extra=extra)
+        logits, cache, _, rep = self._forward(tokens, cache=cache,
+                                              mode="decode", extra=extra)
         return (logits[:, -1], cache), rep
 
     def mvm(self, x: torch.Tensor, layer: str):
@@ -177,6 +195,64 @@ class Runtime:
         with torch.no_grad():
             y = pim_linear(lin, x.to(self.device), ctx)
         return y, AdOpsReport(ctx.ops)
+
+    # -- training ---------------------------------------------------------------
+
+    def _train_pair(self):
+        """(train_step, opt_init) of the Runtime's ``TrainConfig``, built
+        once; the parameters get gradients from here on."""
+        if self._train is None:
+            if self.backend not in TRAIN_BACKENDS:
+                raise ValueError(
+                    f"backend {self.backend!r} has no gradient path; train "
+                    f"on one of {TRAIN_BACKENDS} (fake_quant is QAT through "
+                    f"the straight-through estimator)")
+            if self.plan is not None:
+                raise ValueError("training updates the weights a plan "
+                                 "freezes; compile with plan=None")
+            from ..train.loop import make_train_step
+
+            def apply_fn(batch):
+                logits, _, aux = self.model(
+                    batch["tokens"], self._step_ctx, mode="train",
+                    **self._modality(batch))
+                return logits, aux
+            for p in self.params.values():
+                p.requires_grad_(True)
+            self._train = make_train_step(apply_fn, self.cfg,
+                                          self.tc or TrainConfig())
+        return self._train
+
+    def opt_init(self, params: Optional[dict] = None) -> dict:
+        """Optimizer state for the Runtime's ``TrainConfig``, in the
+        reference's layout (``train.optimizer``)."""
+        return self._train_pair()[1](self.params if params is None
+                                     else params)
+
+    def train_step(self, params: dict, opt_state: dict, batch: dict, step):
+        """One optimizer step: ``((params, opt_state, metrics),
+        AdOpsReport)``, ``metrics`` holding ``loss``, ``gnorm``, ``lr`` and
+        ``ad_ops`` (each forward conversion counted once, rematerialised
+        layers included).  ``params`` other than ``Runtime.params`` are
+        copied into the model first; the model's parameters and
+        ``opt_state`` are updated in place and returned.  ``batch`` holds
+        ``tokens`` and ``labels`` (B, S) and, for a frontend, ``embeds``."""
+        step_fn, _ = self._train_pair()
+        if params is not self.params:
+            with torch.no_grad():
+                for name, live in self.params.items():
+                    if params[name] is not live:
+                        live.copy_(params[name])
+        batch = {k: self._tensor(v, torch.float32 if k == "embeds"
+                                 else torch.int32) for k, v in batch.items()}
+        ctx = self._step_ctx = self._ctx()
+        try:
+            _, opt_state, metrics = step_fn(self.params, opt_state, batch,
+                                            step)
+        finally:
+            self._step_ctx = None
+        metrics["ad_ops"] = ctx.ops
+        return (self.params, opt_state, metrics), AdOpsReport(ctx.ops)
 
     # -- derivation / persistence ---------------------------------------------
 
@@ -209,7 +285,8 @@ class Runtime:
                                 plan, new_cm)
         return Runtime(self.cfg, self.model, backend=new_backend,
                        quant_state=new_qs, plan=built, device=self.device,
-                       plan_enabled=plan_enabled, crossbar_model=new_cm)
+                       plan_enabled=plan_enabled, crossbar_model=new_cm,
+                       tc=self.tc)
 
     def save(self, path: str) -> Optional[str]:
         """Snapshot the register file next to a checkpoint (the versioned
@@ -265,7 +342,8 @@ def compile(cfg: ModelConfig, params: Any, *, device=None,
             backend: Optional[str] = None,
             quant_state: Optional[QuantState] = None,
             plan: Any = True,
-            crossbar_model: Optional[CrossbarModel] = None) -> Runtime:
+            crossbar_model: Optional[CrossbarModel] = None,
+            tc: Optional[TrainConfig] = None) -> Runtime:
     """Build a :class:`Runtime` on ``device`` (default ``cuda``; without a
     GPU, ``device="cpu"`` must be given).
 
@@ -275,8 +353,10 @@ def compile(cfg: ModelConfig, params: Any, *, device=None,
     weight-stationary plan, a prebuilt ``PimPlan`` is validated, and
     ``False``/``None`` serves dynamically.  ``crossbar_model`` defaults to
     the ambient ``use_crossbar_model`` one; a non-null model on a
-    noise-blind backend raises ``ValueError``.  TF32 is switched off: the
-    reference's dots run at full f32 precision."""
+    noise-blind backend raises ``ValueError``.  ``tc`` is the training
+    configuration of ``opt_init``/``train_step`` (default
+    ``TrainConfig()``; train with ``plan=None``).  TF32 is switched off:
+    the reference's dots run at full f32 precision."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -294,4 +374,4 @@ def compile(cfg: ModelConfig, params: Any, *, device=None,
                         crossbar_model)
     return Runtime(cfg, model, backend=backend, quant_state=quant_state,
                    plan=built, device=device, plan_enabled=plan_enabled,
-                   crossbar_model=crossbar_model)
+                   crossbar_model=crossbar_model, tc=tc)

@@ -1,0 +1,136 @@
+"""Training loop (port of ``repro.train.loop``): the loss, the train step
+with microbatch accumulation, and the host-side ``Trainer`` with its
+straggler watchdog and periodic asynchronous checkpoints.
+
+The reference differentiates its functional forward with
+``jax.value_and_grad``; here the forward is the model's own, and
+``torch.autograd.grad`` takes the gradients of the parameters that
+``train_step`` is given.  ``shardings_for`` (the ZeRO-1 placement) waits
+for the multi-GPU port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig, TrainConfig
+from .optimizer import lr_schedule, make_optimizer
+
+AUX_LOSS_WEIGHT = 0.01
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            aux) -> torch.Tensor:
+    """Token-mean cross entropy in f32 plus ``0.01 * aux`` (the MoE Switch
+    loss), the reference's steps: f32 logits, a detached max, log-sum-exp,
+    the gold logit, the mean.  The reference takes the gold logit as a
+    masked sum over the vocabulary (one term is nonzero); a gather gives
+    the same value and gradient without the (B, S, V) mask."""
+    logits = logits.float()
+    m = torch.amax(logits, -1, keepdim=True).detach()
+    logz = torch.log(torch.sum(torch.exp(logits - m), -1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce + AUX_LOSS_WEIGHT * aux
+
+
+def make_train_step(apply_fn: Callable, cfg: ModelConfig, tc: TrainConfig):
+    """Returns ``(train_step, opt_init)``.  ``apply_fn(batch) -> (logits,
+    aux)`` runs the model's train-mode forward on the parameters that
+    ``train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)`` is given (a dict of the model's own leaf tensors, which the
+    step updates in place).  With ``tc.microbatch`` below the batch, the
+    batch is split into ``nb`` microbatches whose losses and gradients are
+    each divided by ``nb`` and summed, as the reference's scan does."""
+    opt_init, opt_update = make_optimizer(tc, cfg)
+    lr_fn = lr_schedule(tc)
+
+    def loss_and_grads(tensors, batch):
+        logits, aux = apply_fn(batch)
+        loss = lm_loss(logits, batch["labels"], aux)
+        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(t) if g is None else g
+                               for t, g in zip(tensors, grads)]
+
+    def grads_of(params: dict, batch: dict):
+        names = list(params)
+        tensors = [params[n] for n in names]
+        b = batch["tokens"].shape[0]
+        if tc.microbatch and tc.microbatch < b:
+            nb = b // tc.microbatch
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tensors[0].device)
+            acc = [torch.zeros_like(t) for t in tensors]
+            for i in range(nb):
+                sl = slice(i * tc.microbatch, (i + 1) * tc.microbatch)
+                mb = {k: v[sl] for k, v in batch.items()}
+                l_i, g_i = loss_and_grads(tensors, mb)
+                loss = loss + l_i / nb
+                acc = [a + g / nb for a, g in zip(acc, g_i)]
+            grads = acc
+        else:
+            loss, grads = loss_and_grads(tensors, batch)
+        return loss, dict(zip(names, grads))
+
+    def train_step(params, opt_state, batch, step):
+        loss, grads = grads_of(params, batch)
+        lr = lr_fn(step).to(loss.device)
+        params, opt_state, gnorm = opt_update(grads, opt_state, params, lr)
+        return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
+
+    return train_step, opt_init
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Host-side loop: the straggler watchdog, a history row every
+    ``log_every`` steps (and at the last), and an asynchronous checkpoint
+    every ``tc.checkpoint_every`` steps in the reference's format (``cfg``
+    maps the port's state onto the reference's tree; needed with
+    ``ckpt_dir``).  Resume is exact: the data stream is stateless."""
+    train_step: Callable
+    batch_at: Callable[[int], dict]
+    tc: TrainConfig
+    ckpt_dir: Optional[str] = None
+    log_every: int = 10
+    cfg: Optional[ModelConfig] = None
+
+    def run(self, params, opt_state, start_step: int = 0,
+            num_steps: Optional[int] = None, on_metrics=None):
+        from ..ckpt.checkpoint import save_train_state
+        if self.ckpt_dir and self.cfg is None:
+            raise ValueError("Trainer(ckpt_dir=...) needs cfg to write the "
+                             "reference's checkpoint layout")
+        num_steps = num_steps or self.tc.total_steps
+        step_times: list = []
+        stragglers = []
+        history = []
+        for step in range(start_step, num_steps):
+            t0 = time.perf_counter()
+            batch = self.batch_at(step)
+            params, opt_state, metrics = self.train_step(
+                params, opt_state, batch, step)
+            loss = float(metrics["loss"])           # waits for the step
+            dt = time.perf_counter() - t0
+            step_times.append(dt)
+            med = float(np.median(step_times[-50:]))
+            if len(step_times) > 5 and dt > self.tc.watchdog_factor * med:
+                stragglers.append((step, dt, med))
+            if step % self.log_every == 0 or step == num_steps - 1:
+                row = {k: float(v) for k, v in metrics.items()}
+                row.update(loss=loss, step=step, step_time_s=dt)
+                history.append(row)
+                if on_metrics:
+                    on_metrics(row)
+            if self.ckpt_dir and self.tc.checkpoint_every and \
+                    (step + 1) % self.tc.checkpoint_every == 0:
+                save_train_state(self.ckpt_dir, step + 1, params, opt_state,
+                                 self.cfg, background=True)
+        return params, opt_state, {"history": history,
+                                   "stragglers": stragglers,
+                                   "median_step_s": float(
+                                       np.median(step_times))}

@@ -1,0 +1,170 @@
+"""AdamW with the reference's large-scale options (port of
+``repro.train.optimizer``): a global-norm clip in f32, bias correction,
+decoupled weight decay, ``optimizer_dtype="bfloat16"`` moments (the update
+math runs in f32) and the Adafactor-style row/column-factored second
+moment (``factored_second_moment``).
+
+The reference stacks every layer leaf over periods, and its leaf rules act
+on those stacked shapes: decay applies where the stacked leaf has rank >= 2
+(a layer's norm scale is ``(P, d)`` there), and ``v`` is factored over the
+last two axes where both are at least 8 (so a stacked ``(P, d)`` leaf is
+factored across layers once ``P >= 8``).  The port keeps one tensor a
+layer, so the optimizer groups its parameters by the reference leaf they
+came from (``convert.ref_groups``), decides both rules on the group's
+stacked shape, and keeps ``m`` and ``v`` stacked, keyed by the reference's
+paths: the optimizer state is the reference's tree.  A group whose members
+have rank >= 2 updates member by member through views of its stacked
+moments (the factored means run over the last two axes, per layer); a
+group of rank-1 members is small and is stacked for its update.
+
+``update`` works in place: the parameters and the state it returns are the
+tensors it was given.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..configs.base import TrainConfig
+from ..convert import ref_groups, stacked
+
+
+def lr_schedule(tc: TrainConfig):
+    """step -> learning rate, a 0-dim f32 tensor: linear warmup, then a
+    cosine from 1 to 0.1 of ``learning_rate``, in f32 as the reference."""
+    def lr(step) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=torch.float32)
+        warm = torch.clamp(step / max(tc.warmup_steps, 1), max=1.0)
+        prog = torch.clamp((step - tc.warmup_steps)
+                           / max(tc.total_steps - tc.warmup_steps, 1), 0, 1)
+        cos = 0.5 * (1 + torch.cos(math.pi * prog))
+        return tc.learning_rate * warm * (0.1 + 0.9 * cos)
+    return lr
+
+
+def _moment_dtype(tc: TrainConfig) -> torch.dtype:
+    return torch.bfloat16 if tc.optimizer_dtype == "bfloat16" \
+        else torch.float32
+
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 8 and shape[-2] >= 8
+
+
+def _stacked_shape(path: str, members, cfg) -> tuple:
+    shape = tuple(members[0].shape)
+    return (len(members),) + shape if stacked(path, cfg) else shape
+
+
+def make_optimizer(tc: TrainConfig, cfg):
+    """(init(params) -> state, update(grads, state, params, lr) ->
+    (params, state, gnorm)).  ``params`` and ``grads`` are dicts keyed by
+    the port's state-dict names; ``cfg`` maps them onto the reference's
+    stacked leaves.  The state is ``{"step": 0-dim int32, "m": {path:
+    tensor}, "v": {path: tensor or {"row", "col"}}}``."""
+    mdt = _moment_dtype(tc)
+
+    def init(params: dict) -> dict:
+        m, v = {}, {}
+        for path, names in ref_groups(params, cfg).items():
+            members = [params[n] for n in names]
+            shape = _stacked_shape(path, members, cfg)
+            kw = dict(dtype=mdt, device=members[0].device)
+            m[path] = torch.zeros(shape, **kw)
+            if tc.factored_second_moment and _factored(shape):
+                v[path] = {"row": torch.zeros(shape[:-1], **kw),
+                           "col": torch.zeros(shape[:-2] + shape[-1:], **kw)}
+            else:
+                v[path] = torch.zeros(shape, **kw)
+        dev = next(iter(params.values())).device
+        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                "m": m, "v": v}
+
+    def update(grads: dict, state: dict, params: dict, lr):
+        b1, b2 = tc.beta1, tc.beta2
+        step = state["step"] + 1
+        stepf = step.float()
+        c1 = 1 - torch.tensor(b1, dtype=torch.float32,
+                              device=stepf.device) ** stepf
+        c2 = 1 - torch.tensor(b2, dtype=torch.float32,
+                              device=stepf.device) ** stepf
+        groups = ref_groups(params, cfg)
+
+        # global-norm clip in f32, leaf by leaf in the reference's order
+        gsq = None
+        for names in groups.values():
+            for n in names:
+                s = torch.sum(torch.square(grads[n].float()))
+                gsq = s if gsq is None else gsq + s
+        gnorm = torch.sqrt(gsq)
+        scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-12),
+                            max=1.0) if tc.grad_clip > 0 else 1.0
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
+
+        def upd(p, g, m, v, decay: bool):
+            """One (stacked or single) leaf: returns (p_new, m_new, v_new),
+            v_new a {"row", "col"} dict where v is."""
+            g = g.float() * scale
+            m_new = b1 * m.float() + (1 - b1) * g
+            if isinstance(v, dict):                  # factored second moment
+                g2 = torch.square(g) + 1e-30
+                vr = b2 * v["row"].float() + (1 - b2) * g2.mean(-1)
+                vc = b2 * v["col"].float() + (1 - b2) * g2.mean(-2)
+                v_hat = (vr[..., None] * vc[..., None, :]
+                         / torch.clamp(vr.mean(-1)[..., None, None],
+                                       min=1e-30))
+                v_new = {"row": vr, "col": vc}
+            else:
+                v_hat = b2 * v.float() + (1 - b2) * torch.square(g)
+                v_new = v_hat
+            upd_ = (m_new / c1) / (torch.sqrt(v_hat / c2) + tc.eps)
+            if decay:                               # decoupled weight decay
+                upd_ = upd_ + tc.weight_decay * p.float()
+            return (p.float() - lr * upd_).to(p.dtype), m_new, v_new
+
+        def store(dst, src):
+            if isinstance(dst, dict):
+                dst["row"].copy_(src["row"])
+                dst["col"].copy_(src["col"])
+            else:
+                dst.copy_(src)
+
+        def member(v, i):
+            if isinstance(v, dict):
+                return {"row": v["row"][i], "col": v["col"][i]}
+            return v[i]
+
+        with torch.no_grad():
+            for path, names in groups.items():
+                m, v = state["m"][path], state["v"][path]
+                members = [params[n] for n in names]
+                shape = _stacked_shape(path, members, cfg)
+                decay = len(shape) >= 2
+                if not stacked(path, cfg):
+                    p_new, m_new, v_new = upd(members[0], grads[names[0]],
+                                              m, v, decay)
+                    members[0].copy_(p_new)
+                    m.copy_(m_new)
+                    store(v, v_new)
+                elif members[0].ndim >= 2:
+                    # per layer: every rule acts on the last two axes
+                    for i, (p, n) in enumerate(zip(members, names)):
+                        p_new, m_new, v_new = upd(p, grads[n], m[i],
+                                                  member(v, i), decay)
+                        p.copy_(p_new)
+                        m[i].copy_(m_new)
+                        store(member(v, i), v_new)
+                else:
+                    # rank-1 layer leaves: factored across layers, stacked
+                    p_new, m_new, v_new = upd(
+                        torch.stack(members),
+                        torch.stack([grads[n] for n in names]), m, v, decay)
+                    for i, p in enumerate(members):
+                        p.copy_(p_new[i])
+                    m.copy_(m_new)
+                    store(v, v_new)
+        state["step"] = step
+        return params, state, gnorm
+
+    return init, update

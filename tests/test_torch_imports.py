@@ -18,6 +18,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "benchmarks" / "fig6c_fig7_energy_torch.py",
     ROOT / "examples" / "calibrate_cnn_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "train_lm_torch.py",
     ROOT / "tools" / "k1_flip_census.py",
     ROOT / "tools" / "k3_stage_race.py"]
 BANNED = ("jax", "jaxlib", "repro")
@@ -58,7 +59,9 @@ def test_the_walk_sees_the_port():
                 "core/sar_adc.py", "core/coding.py", "pim/mapping.py",
                 "models/cnn.py", "data/synthetic.py",
                 "configs/deepseek_7b.py", "configs/glm4_9b.py",
-                "configs/deepseek_67b.py", "configs/internvl2_76b.py"):
+                "configs/deepseek_67b.py", "configs/internvl2_76b.py",
+                "train/loop.py", "train/optimizer.py", "ckpt/checkpoint.py",
+                "launch/train.py", "launch/steps.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 

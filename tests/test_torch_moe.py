@@ -233,6 +233,24 @@ def test_train_mode_logits_match_reference(jax_params, rng):
                                atol=1e-4)
 
 
+def test_train_mode_apply_returns_the_reference_switch_loss(jax_params,
+                                                            rng):
+    """``Runtime.apply`` in train mode returns the Switch loss summed over
+    the MoE layers in layer order (f32, nonzero) as the reference's
+    ``apply``; a dense model returns 0.0 in f32, as the reference."""
+    rj, rt = _rt_pair(jax_params, "exact")
+    toks = rng.integers(0, rt.cfg.vocab_size, (2, 12)).astype(np.int32)
+    (_, _, aux_j), _ = rj.apply({"tokens": toks})
+    (_, _, aux_t), _ = rt.apply({"tokens": toks})
+    assert aux_t.dtype == torch.float32 and aux_t.ndim == 0
+    assert float(aux_j) > 0.5
+    np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-6)
+    dense = get_config("llama3.2-3b", smoke=True).replace(**F32)
+    rd = trt.compile(dense, init(dense, seed=0, device="cpu"), device="cpu")
+    (_, _, aux_d), _ = rd.apply({"tokens": toks})
+    assert aux_d.dtype == torch.float32 and float(aux_d) == 0.0
+
+
 def test_plan_holds_the_attention_projections_only(jax_params):
     """The plan, the A/D count and the census see ``wq/wk/wv/wo`` of each
     layer: 4 x 2 at the smoke config, no expert or router path."""
