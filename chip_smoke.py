@@ -23,8 +23,8 @@ which fails the run on any error:
            on the ``w_gate`` of one 2,048-token prefill; rwkv6-7b's four
            projection shapes (4,096 -> 4,096 / 14,336 / 65,536 and 14,336
            -> 4,096) at M = 1, 2, 4, 8, 16, 32 and 64, whisper-medium's
-           three (1,024 -> 1,024 / 4,096 and 4,096 -> 1,024) at M = 4, 8
-           and 1,500, granite-moe-3b-a800m's two (1,536 -> 1,536 / 512)
+           three (1,024 -> 1,024 / 4,096 and 4,096 -> 1,024) at M = 4, 8,
+           64, 256 and 1,500, granite-moe-3b-a800m's two (1,536 -> 1,536 / 512)
            at M = 1, 2, 3, 4, 16 and 64, and jamba-v0.1-52b's four new
            ones (4,096 -> 16,384 / 1,024, 8,192 -> 288 / 4,096; ``x_proj``'s
            288 ends K1's 128-column blocks on a ragged 32) at M = 1, 2, 3,
@@ -42,7 +42,8 @@ which fails the run on any error:
            at phase 12's, ``WHISPER_PATH``; on granite's, at phase 13's,
            ``GRANITE_PATH``; on jamba's, at phase 14's, ``JAMBA_PATH``; on
            phase 16's, at M = 4 and 64 and the lm_heads at 1 and 4,
-           ``DENSE_PATH``) beside the
+           ``DENSE_PATH``; at phase 18's deployed prefills, whisper's 64
+           and 256 rows and rwkv6's 64, ``FAMILY_PATH``) beside the
            bound (bf16 weights read at 2 bytes each): the device time (20
            launches, each after an L2 flush, replayed as one CUDA graph,
            less the flushes), the time of one call as a caller sees it,
@@ -303,11 +304,12 @@ which fails the run on any error:
            heads, d_ff 11,008, vocab 102,400, an untied ``lm_head``) and
            glm4-9b (40 layers, 32 query and 2 KV heads, d_ff 13,696, vocab
            151,552, untied) at full depth; deepseek-67b (d=8,192, 64/8
-           heads, d_ff 22,016, vocab 102,400) cut to 28 of 95 layers and
+           heads, d_ff 22,016, vocab 102,400) cut to 14 of 95 layers and
            internvl2-76b (d=8,192, 64/8 heads, d_ff 28,672, vocab 128,256,
-           the patch frontend) cut to 22 of 80 (``DENSE_ARCHS``: the bf16
-           weights, the ``bit_exact`` masks and the plain-K3 check's
-           column blocks within the card).  Each runs phase 3's
+           the patch frontend) cut to 11 of 80 (``DENSE_ARCHS``: half the
+           depth that fits the card, so that the script with phase 18
+           keeps its time limit; 28 and 22 fit the bf16 weights, the
+           ``bit_exact`` masks and the plain-K3 check's column blocks).  Each runs phase 3's
            trace on ``pallas``, then on ``bit_exact``, through the paged
            engine asked for prefix reuse (on for the three dense decoders,
            kept off by the engine for internvl2, whose every request
@@ -364,9 +366,34 @@ which fails the run on any error:
            kernel, attention, the optimizer, idle share), peak memory, the
            checkpoint's bytes and write and read seconds, the phase's
            seconds.
+18. families  whisper-medium whole (24 + 24 layers, 759,592,960
+           parameters), rwkv6-7b cut to 8 of 32 layers (2,621,804,544)
+           and jamba-v0.1-52b cut to 2 of 32 (layer 0 ``mamba+mlp``,
+           layer 1 ``mamba+moe``; 3,742,289,920), every width kept,
+           trained as phase 17 trains llama (f32 masters and moments,
+           bf16 compute, ``remat="block"``, ``fake_quant``), 6 steps of 2
+           x 256 tokens each, whisper with 2 x 256 seeded N(0, 1) frames.
+           Fails unless every loss and gnorm is finite, the mean loss of
+           the last 3 steps is below that of the first 3, and every
+           step's A/D ops equal the family's closed form (``FAMILIES``,
+           held to the ``PimLinear``s and the rows each sees: frames
+           through the frame projection, the encoder and the cross-KV,
+           tokens through the rest and the ``lm_head``).  Each trained
+           model is then served in bf16 on ``pallas``: one 64-token
+           prefill (whisper's after 256 seeded frames) must launch K1
+           once per planned projection (385, 65, 10), with A/D ops equal
+           to the closed form, and hold against ``fake_quant`` at the
+           phase-4 bar (the per-depth gate where the control allows).
+           whisper also resumes exactly, cut to 2 + 2 layers (phase 17's
+           check, its frames in every batch), through its ``enc``/``dec``
+           checkpoint tree.  Readings: step seconds split into
+           forward+backward and optimizer, tokens/s, peak memory, one
+           jamba step's ``torch.profiler`` split (phase 17's spans and
+           the ``ssm`` span: the conv and the scan, forward and
+           recompute), the seconds of each family.
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
-12, 13, 14, 16 and 17 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
+12, 13, 14, 16, 17 and 18 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
 calibration of phase 8 for both of K2's entries, phase 15 for all three)
 and read just after; launches that compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -437,6 +464,13 @@ WHISPER_MAX_LEN = 1504
 # and the 1,500 frame rows (frame projection, encoder, cross-KV)
 WHISPER_MS = (4, 8, WHISPER_FRAMES)
 WHISPER_PATH = sorted((m, k, n) for m in WHISPER_MS for k, n in WHISPER_KN)
+FAMILY_FRAMES = 256                # phase 18: whisper's deployed frames
+# phase 18's deployed prefills give K1 whisper's shapes at 64 decoder rows
+# and 256 frame rows (new to phase 2) and rwkv6's at 64 rows (checked at
+# RWKV_MS); phase 2 times them all
+WHISPER_DEPLOY = [(m, k, n) for m in (64, FAMILY_FRAMES)
+                  for k, n in WHISPER_KN]
+FAMILY_PATH = sorted(WHISPER_DEPLOY + [(64, k, n) for k, n in RWKV_KN[:3]])
 # K1 (K3) launches of one forward: the frame projection, 24 x 6 encoder
 # projections, 24 x 2 cross-KV and 24 x 8 decoder projections at prefill;
 # the decoder's alone at decode
@@ -480,11 +514,12 @@ JAMBA_ROW = 25_030_656             # conversions of a row through all 75
 JAMBA_PREFILL_ROW = 22_933_504     # ... of a prefill row (no lm_head)
 JAMBA_SCAN_LEN = 1024              # phase 14: four 256-token chunks
 # phase 16: the reference's last four LM configs, each with its depth cut
-# (None: every layer).  The two d = 8,192 models are cut where the card's
-# 80 GB still hold the bf16 weights, the bit_exact masks (1 byte a planned
-# weight) and the plain-K3 check's column blocks
+# (None: every layer).  The two d = 8,192 models are cut to half the depth
+# where the card's 80 GB still hold the bf16 weights, the bit_exact masks
+# (1 byte a planned weight) and the plain-K3 check's column blocks (28 and
+# 22 layers): the script's time limit
 DENSE_ARCHS = (("deepseek-7b", None), ("glm4-9b", None),
-               ("deepseek-67b", 28), ("internvl2-76b", 22))
+               ("deepseek-67b", 14), ("internvl2-76b", 11))
 # (K, N) that phase 16 brings to K1 and K3: glm4's wk/wv and MLP,
 # deepseek-7b's MLP, at d = 8,192 wq/wo (and internvl2's patch_proj),
 # wk/wv and deepseek-67b's and internvl2's MLPs (wq/wk/wv/wo at d = 4,096
@@ -517,7 +552,20 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 256    # phase 17: tokens a step, 512
 TRAIN_PARAMS = 3_212_749_824       # llama3.2-3b, tied embeddings
 TRAIN_AD_OPS = 78_920_024_064      # 7 x 786,432 x 28 x 512, forward only
 RESUME_LAYERS = 2                  # phase 17: the exact-resume cut
-DEPLOY_TOKENS = 64                 # phase 17: the deployed prefill
+DEPLOY_TOKENS = 64                 # phases 17 and 18: the deployed prefill
+FAMILY_STEPS = 6                   # phase 18: full-width QAT steps a family
+FAMILY_RESUME_LAYERS = 2           # phase 18: whisper's resume cut, 2 + 2
+FAMILY_PROFILED = "jamba-v0.1-52b"  # phase 18: the family profiled (its
+                                   # trace is the shortest)
+# phase 18, in its order: (layers kept, or None for all; parameters; A/D
+# ops of a train step, 7 x the conversions of its 512 token rows (and, for
+# whisper, 512 frame rows); of the deployed prefill: 64 token rows, one
+# lm_head row, whisper's 256 frame rows)
+FAMILIES = {
+    "whisper-medium": (None, 759_592_960, 19_759_366_144, 6_180_306_944),
+    "rwkv6-7b": (8, 2_621_804_544, 65_766_686_720, 7_295_991_808),
+    "jamba-v0.1-52b": (2, 3_742_289_920, 18_217_959_424, 1_352_400_896),
+}
 ROUTER_MARGIN = 1e-6               # phase 13: k-th less (k+1)-th probability
 ROUTER_REL_BAR = 2e-2              # phase 13: bf16 MoE layer against f64
 WKV_TOL = 1e-4                     # phase 11: scan against recurrence
@@ -694,6 +742,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
     cases = [((m, k, n), default) for m in K1_MS for k, n in PROJ_KN]
     cases += [((m, k, n), default) for m in RWKV_MS for k, n in RWKV_KN]
     cases += [((m, k, n), default) for m, k, n in WHISPER_PATH]
+    cases += [((m, k, n), default) for m, k, n in WHISPER_DEPLOY]
     cases += [((m, k, n), default) for m in GRANITE_MS
               for k, n in GRANITE_KN]
     cases += [((m, k, n), default) for m in JAMBA_MS for k, n in JAMBA_KN]
@@ -724,7 +773,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
                 n_exact += 1
     log(f"  exact: {n_exact} integer cases (M in {K1_MS} at llama's four "
         f"projection shapes, M in {RWKV_MS} at rwkv6's four, M in "
-        f"{WHISPER_MS} at whisper's three, M in {GRANITE_MS} at granite's "
+        f"{WHISPER_MS} and 64, {FAMILY_FRAMES} at whisper's three, M in "
+        f"{GRANITE_MS} at granite's "
         f"two, M in {JAMBA_MS} at jamba's four, M in {DENSE_MS} at phase "
         f"16's eleven, 1-4 at its four lm_heads, internvl2's prefill rows, "
         f"3x300x130 and "
@@ -740,6 +790,8 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
               for m in RWKV_MS for k, n in RWKV_KN for auto in (False, True)]
     cases += [((m, k, n), default, torch.bfloat16, auto)
               for m, k, n in WHISPER_PATH for auto in (False, True)]
+    cases += [((m, k, n), default, torch.bfloat16, auto)
+              for m, k, n in WHISPER_DEPLOY for auto in (False, True)]
     cases += [((m, k, n), default, torch.bfloat16, auto)
               for m in GRANITE_MS for k, n in GRANITE_KN
               for auto in (False, True)]
@@ -803,6 +855,7 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
             raise AssertionError("K1 outside the float bar:" + line)
         if ((k, n) in PROJ_KN and m in K1_TIMED_MS or (m, k, n) in
                 RWKV_PATH or (m, k, n) in WHISPER_PATH or (m, k, n) in
+                FAMILY_PATH or (m, k, n) in
                 GRANITE_PATH or (m, k, n) in JAMBA_PATH or (m, k, n) in
                 DENSE_PATH) and auto and \
                 wdt == torch.bfloat16 and rk is default:
@@ -3661,11 +3714,12 @@ def timed_optimizer(torch, seconds: list):
 
 
 @contextlib.contextmanager
-def train_spans(torch):
+def train_spans(torch, extra=()):
     """``record_function`` spans over the fake_quant datapath's pieces a
     train step runs (forward, and again in the rematerialised backward):
     the quantizer and its op count, the auto-range fit, the f32 per-group
-    einsums, attention."""
+    einsums, attention; ``extra`` adds (module or class, name, label)
+    targets."""
     from repro_torch.models import attention
     from repro_torch.pim import crossbar
     targets = [(crossbar, "trq_quant", "quantizer"),
@@ -3673,7 +3727,7 @@ def train_spans(torch):
                (crossbar, "auto_range_fit_grouped", "auto-range"),
                (crossbar, "_group_psums", "einsum"),
                (attention, "full_attention", "attention"),
-               (attention, "chunked_attention", "attention")]
+               (attention, "chunked_attention", "attention"), *extra]
     saved = []
 
     def wrap(fn, label):
@@ -3692,14 +3746,15 @@ def train_spans(torch):
             setattr(mod, name, fn)
 
 
-def profile_train_step(torch, fn) -> dict:
+def profile_train_step(torch, fn, extra=()) -> dict:
     """``torch.profiler`` over one train step ``fn``: host clock, device
     busy time and idle share, device time in the labelled spans (the
-    auto-range fit's own einsum counts in ``einsum`` too), the GEMM
-    kernels by name (forward, backward and recompute: the f32
-    einsums' and the logits'), and the ten longest kernels."""
+    auto-range fit's own einsum counts in ``einsum`` too; ``extra`` as
+    :func:`train_spans`), the GEMM kernels by name (forward, backward and
+    recompute: the f32 einsums' and the logits'), and the ten longest
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
-    with train_spans(torch), profile(activities=[
+    with train_spans(torch, extra), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3707,19 +3762,19 @@ def profile_train_step(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     return device_split(prof.events(), wall_ms, (
-        "quantizer", "auto-range", "einsum", "attention", "optimizer"),
+        "quantizer", "auto-range", "einsum", "attention", "optimizer",
+        *sorted({label for _, _, label in extra})),
         dict(gemm=r"(?i)gemm|xmma|cutlass"))
 
 
-def train_steps(torch, rt, params, opt, stream, steps, device) -> tuple:
-    """Run ``steps`` train steps; returns (params, opt, one row a step:
-    loss, gnorm, lr, ad_ops, host seconds)."""
+def train_steps(torch, rt, params, opt, batch_at, steps) -> tuple:
+    """Run ``steps`` train steps on ``batch_at(step)``; returns (params,
+    opt, one row a step: loss, gnorm, lr, ad_ops, host seconds)."""
     rows = []
     for i in steps:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (params, opt, m), _ = rt.train_step(params, opt,
-                                            stream.batch_at(i, device), i)
+        (params, opt, m), _ = rt.train_step(params, opt, batch_at(i), i)
         torch.cuda.synchronize()
         rows.append(dict(step=i, loss=float(m["loss"]),
                          gnorm=float(m["gnorm"]), lr=float(m["lr"]),
@@ -3728,23 +3783,21 @@ def train_steps(torch, rt, params, opt, stream, steps, device) -> tuple:
     return params, opt, rows
 
 
-def exact_resume(torch, cfg, tc, device: str = "cuda") -> dict:
-    """``cfg`` cut to ``RESUME_LAYERS`` layers, every width kept: six
-    steps straight against three, a checkpoint in the reference's format
-    (a temporary directory, removed after), a restore into a Runtime built
-    from other weights and three more; parameters at rtol 1e-5, atol 1e-6
-    (the reference's resume bars).  The straight run goes twice first: if
-    the card's backward is not bitwise repeatable the check runs under
+def exact_resume(torch, cut, tc, batch_at, device: str = "cuda") -> dict:
+    """``cut`` (a config cut in depth, every width kept) trained on
+    ``batch_at(step)``: six steps straight against three, a checkpoint in
+    the reference's format (a temporary directory, removed after), a
+    restore into a Runtime built from other weights and three more;
+    parameters at rtol 1e-5, atol 1e-6 (the reference's resume bars).  The
+    straight run goes twice first: if the card's backward is not bitwise
+    repeatable the check runs under
     ``torch.use_deterministic_algorithms(True)``, and says so."""
     import shutil
     import tempfile
     from repro_torch import runtime
     from repro_torch.ckpt.checkpoint import (restore_train_state,
                                              save_train_state)
-    from repro_torch.data.synthetic import TokenStream
     from repro_torch.models.registry import init
-    cut = cfg.replace(n_layers=RESUME_LAYERS)
-    stream = TokenStream(cut.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)
 
     def fresh(seed=0):
         return runtime.compile(cut, init(cut, seed=seed, device=device),
@@ -3752,13 +3805,15 @@ def exact_resume(torch, cfg, tc, device: str = "cuda") -> dict:
 
     def straight():
         rt = fresh()
-        p, _, _ = train_steps(torch, rt, rt.params, rt.opt_init(), stream,
-                              range(6), device)
+        p, _, _ = train_steps(torch, rt, rt.params, rt.opt_init(), batch_at,
+                              range(6))
         return {k: v.detach().clone() for k, v in p.items()}
 
     def same(a, b):
         return all(torch.equal(a[k], b[k]) for k in a)
-    out = dict(layers=RESUME_LAYERS)
+    layers = f"{cut.encoder_layers} + {cut.n_layers}" \
+        if cut.encoder_layers else f"{cut.n_layers}"
+    out = dict(layers=layers)
     ref = straight()
     out["repeatable"] = same(ref, straight())
     if not out["repeatable"]:
@@ -3768,8 +3823,8 @@ def exact_resume(torch, cfg, tc, device: str = "cuda") -> dict:
         ref = straight()
     try:
         rt = fresh()
-        p, o, _ = train_steps(torch, rt, rt.params, rt.opt_init(), stream,
-                              range(3), device)
+        p, o, _ = train_steps(torch, rt, rt.params, rt.opt_init(), batch_at,
+                              range(3))
         tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
         try:
             torch.cuda.synchronize()
@@ -3788,7 +3843,7 @@ def exact_resume(torch, cfg, tc, device: str = "cuda") -> dict:
             out["read_s"] = time.perf_counter() - t0
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        p, o, _ = train_steps(torch, rt, p, o, stream, range(at, 6), device)
+        p, o, _ = train_steps(torch, rt, p, o, batch_at, range(at, 6))
     finally:
         torch.use_deterministic_algorithms(False)
     worst = 0.0
@@ -3798,7 +3853,7 @@ def exact_resume(torch, cfg, tc, device: str = "cuda") -> dict:
             worst = max(worst, float(err))
     out.update(bitwise=same(p, ref), worst_excess=worst,
                deterministic_mode=not out["repeatable"])
-    log(f"  exact resume at {RESUME_LAYERS} layers: checkpoint "
+    log(f"  exact resume at {layers} layers: checkpoint "
         f"{out['bytes'] / 1e9:.2f} GB written in {out['write_s']:.1f} s, "
         f"read in {out['read_s']:.1f} s; 3 + 3 steps against 6 straight: "
         f"bitwise {out['bitwise']}, worst excess over rtol 1e-5 / atol "
@@ -3808,52 +3863,58 @@ def exact_resume(torch, cfg, tc, device: str = "cuda") -> dict:
     return out
 
 
-def train_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
-    """Phase 17 (see the module docstring)."""
+def train_run(torch, cfg, tc, batch_at, n_steps: int, want_ops: int,
+              want_params=None, spans=None, device: str = "cuda"):
+    """Train ``cfg`` from the port's seeded init on ``batch_at(step)`` for
+    ``n_steps`` steps (``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens each), then,
+    unless ``spans`` is None, profile one more step (``spans`` as
+    :func:`train_spans`'s ``extra``).  Fails unless
+    every loss and gnorm is finite, the mean loss of the last 3 steps is
+    below that of the first 3 and every step's A/D ops equal ``want_ops``
+    (and the parameter count ``want_params`` where given).  Returns
+    (Runtime, trained params, readings)."""
     import numpy as np
     from repro_torch import runtime
-    from repro_torch.data.synthetic import TokenStream
-    from repro_torch.kernels.trq_group_mvm import kernel as k1
-    from repro_torch.launch.steps import make_train_config
-    from repro_torch.models.registry import build_model, init
+    from repro_torch.models.registry import init
 
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tc = make_train_config(cfg.name, total_steps=TRAIN_STEPS,
-                           warmup_steps=1)
     rows_per_step = TRAIN_BATCH * TRAIN_SEQ
-    want_ops = 7 * conversions_per_token(cfg) * cfg.n_layers * rows_per_step
-    if cfg.name == ARCH and cfg.n_layers == N_LAYERS and \
-            want_ops != TRAIN_AD_OPS:
-        raise AssertionError(f"closed form {want_ops} != {TRAIN_AD_OPS}")
     opt_s: list = []
+    t0 = time.perf_counter()
     with timed_optimizer(torch, opt_s):
         rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
                              device=device, plan=None, tc=tc)
         n_params = sum(v.numel() for v in rt.params.values())
-        if cfg.name == ARCH and cfg.n_layers == N_LAYERS and \
-                n_params != TRAIN_PARAMS:
-            raise AssertionError(f"{n_params} parameters")
+        if want_params is not None and n_params != want_params:
+            raise AssertionError(f"{cfg.name}: {n_params} parameters, not "
+                                 f"{want_params}")
         opt = rt.opt_init()
         gib0 = torch.cuda.memory_allocated() / 2 ** 30
-        log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        depth = f"{cfg.encoder_layers} + {cfg.n_layers}" \
+            if cfg.encoder_layers else f"{cfg.n_layers}"
+        log(f"  {cfg.name}: {depth} layers, d={cfg.d_model}, "
             f"{n_params:,} parameters in f32 with f32 m and v "
             f"({gib0:.2f} GiB allocated), bf16 compute, remat "
-            f"{cfg.remat!r}, {cfg.pim_backend}; {TRAIN_STEPS} steps of "
+            f"{cfg.remat!r}, {cfg.pim_backend}; {n_steps} steps of "
             f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr {tc.learning_rate} "
             f"(warmup {tc.warmup_steps})")
-        stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-        params, opt, rows = train_steps(torch, rt, rt.params, opt, stream,
-                                        range(TRAIN_STEPS), device)
+        t1 = time.perf_counter()
+        params, opt, rows = train_steps(torch, rt, rt.params, opt, batch_at,
+                                        range(n_steps))
         for r, o in zip(rows, opt_s):
             r["optimizer_s"] = o
             log(f"  step {r['step']:2d}: loss {r['loss']:.4f}, gnorm "
                 f"{r['gnorm']:.4f}, lr {r['lr']:.3e}, ad_ops "
                 f"{r['ad_ops']:,}, {r['s']:.3f} s ({o:.3f} s optimizer)")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        # a 13th step, past the gated run, under the profiler
-        prof = profile_train_step(torch, lambda: rt.train_step(
-            params, opt, stream.batch_at(TRAIN_STEPS, device), TRAIN_STEPS))
+        # one more step, past the gated run, under the profiler
+        t2 = time.perf_counter()
+        prof = None if spans is None else profile_train_step(
+            torch, lambda: rt.train_step(params, opt, batch_at(n_steps),
+                                         n_steps), spans)
+    del opt
+    seconds = dict(init=t1 - t0, steps=t2 - t1,
+                   profile=time.perf_counter() - t2)
     losses = [r["loss"] for r in rows]
     finite = all(np.isfinite([r["loss"], r["gnorm"]]).all() for r in rows)
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
@@ -3861,19 +3922,23 @@ def train_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     steady = rows[2:]                       # past the first steps' warm-up
     step_s = float(np.median([r["s"] for r in steady]))
     opt_med = float(np.median([r["optimizer_s"] for r in steady]))
-    out = dict(params=n_params, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+    out = dict(params=n_params, steps=n_steps, batch=TRAIN_BATCH,
                seq=TRAIN_SEQ, rows=rows, loss_first3=first, loss_last3=last,
                ad_ops_per_step=want_ops, step_s=step_s,
                forward_backward_s=step_s - opt_med, optimizer_s=opt_med,
                tokens_per_s=rows_per_step / step_s, peak_gib=peak,
-               gib_after_init=gib0, profile=prof)
+               gib_after_init=gib0, profile=prof, seconds=seconds)
     log(f"  loss {first:.4f} (mean of the first 3) -> {last:.4f} (last 3); "
         f"every step finite {finite}; ad_ops {want_ops:,} a step (closed "
         f"form) on every step {ops_ok}; median step {step_s:.3f} s "
         f"(forward+backward {step_s - opt_med:.3f} s, optimizer "
         f"{opt_med:.3f} s), {rows_per_step / step_s:.1f} tokens/s; peak "
-        f"{peak:.2f} GiB ({card_line()})")
-    if prof["measured"]:
+        f"{peak:.2f} GiB ({card_line()}); seconds: init "
+        f"{seconds['init']:.1f}, steps {seconds['steps']:.1f}, the "
+        f"profiled step {seconds['profile']:.1f}")
+    if prof is None:
+        pass
+    elif prof["measured"]:
         log(f"  profile of one step: host {prof['wall_ms']:.1f} ms, device "
             f"busy {prof['device_busy_ms']:.1f} ms (idle share "
             f"{prof['device_idle_share']:.3f}); quantizer "
@@ -3882,62 +3947,248 @@ def train_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
             f"recompute) {prof['einsum_ms']:.1f} ms, GEMM kernels (all) "
             f"{prof['gemm_ms']:.1f} ms in {prof['gemm_kernels']}, "
             f"attention {prof['attention_ms']:.1f} ms, optimizer "
-            f"{prof['optimizer_ms']:.1f} ms")
+            f"{prof['optimizer_ms']:.1f} ms" + "".join(
+                f", {label} {prof[label + '_ms']:.1f} ms"
+                for label in sorted({lb for _, _, lb in spans})))
         for t in prof["top_kernels"]:
             log(f"    {t['ms']:9.3f} ms {t['count']:5d}x {t['name']}")
     else:
         log(f"  profile of one step: device time not measured; host "
             f"{prof['wall_ms']:.1f} ms")
     if not finite or not last < first:
-        raise AssertionError("training loss not finite or not falling")
+        raise AssertionError(f"{cfg.name}: training loss not finite or not "
+                             f"falling")
     if not ops_ok:
-        raise AssertionError(f"ad_ops a step {[r['ad_ops'] for r in rows]}"
-                             f", closed form {want_ops}")
+        raise AssertionError(f"{cfg.name}: ad_ops a step "
+                             f"{[r['ad_ops'] for r in rows]}, closed form "
+                             f"{want_ops}")
+    return rt, params, out
 
-    # deploy: the trained weights in bf16 on pallas, through K1
-    del opt
-    gc.collect()
-    t1 = time.perf_counter()
+
+def serving_state(cfg, params) -> dict:
+    """The trained f32 masters cast to the bf16 ``pallas`` config's
+    dtypes: (serving config, state dict)."""
+    from repro_torch.models.registry import build_model
     serve_cfg = cfg.replace(param_dtype="bfloat16", pim_backend="pallas",
                             remat="none")
     dtypes = {k: v.dtype for k, v in build_model(serve_cfg).state_dict(
         ).items()}
-    state = {k: v.detach().to(dtypes[k]) for k, v in params.items()}
-    del rt, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    return serve_cfg, {k: v.detach().to(dtypes[k])
+                       for k, v in params.items()}
+
+
+def deploy_trained(torch, rec: dict, key: str, serve_cfg, state: dict,
+                   prompt, want_ops: int, extra=None, max_len: int = 256,
+                   device: str = "cuda") -> dict:
+    """Serve trained weights on ``pallas``: one prefill of ``prompt`` (and
+    ``extra``) must launch K1 once per planned projection, with A/D ops
+    equal to ``want_ops`` and finite logits, and hold against
+    ``fake_quant`` at the phase-4 bar; K1's launches count under
+    ``key``."""
+    from repro_torch import runtime
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    t0 = time.perf_counter()
     srt = runtime.compile(serve_cfg, state, device=device)
-    del state
+    state.clear()
     warm(srt)
-    prompt = stream.batch_at(10 ** 6, "cpu")["tokens"][0, :DEPLOY_TOKENS]
-    prompt = prompt.numpy().astype(np.int64)
     k1.LAUNCHES = 0
-    (logits, _), rep = srt.prefill(prompt[None].astype(np.int32),
-                                   max_len=256)
+    (logits, _), rep = srt.prefill(prompt[None].astype("int32"), extra,
+                                   max_len=max_len)
     torch.cuda.synchronize()
     launches = k1.LAUNCHES
-    rec["launches_by_path"]["llama3.2-3b train"] = launches
-    want_pre = 7 * conversions_per_token(cfg) * cfg.n_layers * DEPLOY_TOKENS
-    log(f"  deployed on pallas: one {DEPLOY_TOKENS}-token prefill launched "
-        f"K1 {launches} times ({len(srt.plan)} planned projections), ad_ops "
-        f"{rep.total():.0f} (closed form {want_pre}), logits finite "
-        f"{bool(torch.isfinite(logits).all())}")
-    if launches != len(srt.plan) or rep.total() != want_pre or \
-            not bool(torch.isfinite(logits).all()):
-        raise AssertionError("the deployed prefill missed K1 or its closed "
-                             "form")
-    out["deploy"] = dict(launches=launches, ad_ops=rep.total())
-    out["deploy"].update(fake_quant_check(torch, srt, prompt, 256))
-    out["deploy_s"] = time.perf_counter() - t1
+    rec["launches_by_path"][key] = launches
+    finite = bool(torch.isfinite(logits).all())
+    log(f"  deployed on pallas: one {len(prompt)}-token prefill"
+        + (f" ({extra['embeds'].shape[1]} frames)" if extra else "")
+        + f" launched K1 {launches} times ({len(srt.plan)} planned "
+        f"projections), ad_ops {rep.total():.0f} (closed form {want_ops}), "
+        f"logits finite {finite}")
+    if launches != len(srt.plan) or rep.total() != want_ops or not finite:
+        raise AssertionError(f"{key}: the deployed prefill missed K1 or "
+                             f"its closed form")
+    out = dict(launches=launches, ad_ops=rep.total())
+    out.update(fake_quant_check(torch, srt, prompt, max_len, extra))
     del srt
     gc.collect()
     torch.cuda.empty_cache()
+    out["deploy_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
+    """Phase 17 (see the module docstring)."""
+    import numpy as np
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.steps import make_train_config
+
+    t0 = time.perf_counter()
+    tc = make_train_config(cfg.name, total_steps=TRAIN_STEPS,
+                           warmup_steps=1)
+    rows_per_step = TRAIN_BATCH * TRAIN_SEQ
+    want_ops = 7 * conversions_per_token(cfg) * cfg.n_layers * rows_per_step
+    full = cfg.name == ARCH and cfg.n_layers == N_LAYERS
+    if full and want_ops != TRAIN_AD_OPS:
+        raise AssertionError(f"closed form {want_ops} != {TRAIN_AD_OPS}")
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    rt, params, out = train_run(
+        torch, cfg, tc, lambda i: stream.batch_at(i, device), TRAIN_STEPS,
+        want_ops, TRAIN_PARAMS if full else None, (), device)
+
+    # deploy: the trained weights in bf16 on pallas, through K1
+    serve_cfg, state = serving_state(cfg, params)
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = stream.batch_at(10 ** 6, "cpu")["tokens"][0, :DEPLOY_TOKENS]
+    prompt = prompt.numpy().astype(np.int64)
+    want_pre = 7 * conversions_per_token(cfg) * cfg.n_layers * DEPLOY_TOKENS
+    out["deploy"] = deploy_trained(torch, rec, f"{cfg.name} train",
+                                   serve_cfg, state, prompt, want_pre,
+                                   device=device)
+    out["deploy_s"] = out["deploy"].pop("deploy_s")
     t2 = time.perf_counter()
-    out["resume"] = exact_resume(torch, cfg, tc, device)
+    resume_stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                seed=1)
+    out["resume"] = exact_resume(torch, cfg.replace(n_layers=RESUME_LAYERS),
+                                 tc, lambda i: resume_stream.batch_at(
+                                     i, device), device)
     out["resume_s"] = time.perf_counter() - t2
     out["phase_s"] = time.perf_counter() - t0
     log(f"  phase 17 in {out['phase_s']:.1f} s (resume check "
         f"{out['resume_s']:.1f} s, deployment {out['deploy_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: train rwkv6-7b, jamba-v0.1-52b and whisper-medium
+# ---------------------------------------------------------------------------
+
+def family_config(arch: str):
+    """``arch`` at every width as the trainer takes it (f32 masters, bf16
+    compute, the config's own ``remat="block"``, QAT on ``fake_quant``),
+    cut to its ``FAMILIES`` depth."""
+    from repro_torch.models.registry import get_config
+    layers = FAMILIES[arch][0]
+    cfg = get_config(arch).replace(pim_backend="fake_quant")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    assert (cfg.param_dtype, cfg.dtype, cfg.remat) == ("float32",
+                                                       "bfloat16", "block")
+    return cfg
+
+
+def row_conversions(model) -> tuple:
+    """(conversions of a frame row, of a token row, of the ``lm_head``'s
+    row) through ``model``'s ``PimLinear``s, N x ceil(K/128) each: a frame
+    row goes through the frame projection, the encoder and the
+    cross-attention's keys and values; a token row through every other
+    projection but the ``lm_head``."""
+    from repro_torch.pim.plan import iter_linears
+    frame = token = head = 0
+    for path, lin in iter_linears(model):
+        c = lin.w.shape[1] * -(-lin.w.shape[0] // 128)
+        if path.startswith(("frontend.", "enc.")) or re.search(
+                r"\.xattn\.w[kv]$", path):
+            frame += c
+        elif path == "lm_head":
+            head += c
+        else:
+            token += c
+    return frame, token, head
+
+
+def family_forms(cfg, model) -> tuple:
+    """(A/D ops of a train step, of the deployed prefill) from
+    :func:`row_conversions`, held to the config's closed forms
+    (``whisper_conversions``, ``rwkv_conversions``, ``jamba_conversions``):
+    a step's forward converts every frame row (``TRAIN_SEQ`` frames a
+    sequence) and every token row through the ``lm_head`` once, the
+    rematerialised recompute none; the prefill converts ``FAMILY_FRAMES``
+    frame rows, ``DEPLOY_TOKENS`` token rows and one ``lm_head`` row."""
+    frame, token, head = row_conversions(model)
+    if cfg.encoder_layers:
+        f_row, xkv, dec = whisper_conversions(cfg)
+        want = (f_row + xkv, dec, 0)
+    else:
+        conv = rwkv_conversions if cfg.family == "ssm" else jamba_conversions
+        row, prefill = conv(cfg)
+        want = (0, prefill, row - prefill)
+    if (frame, token, head) != want:
+        raise AssertionError(f"{cfg.name}: conversions a row "
+                             f"{(frame, token, head)}, config {want}")
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    frames = rows if cfg.encoder_layers else 0
+    deploy_frames = FAMILY_FRAMES if cfg.encoder_layers else 0
+    return (7 * (frames * frame + rows * (token + head)),
+            7 * (deploy_frames * frame + DEPLOY_TOKENS * token + head))
+
+
+def family_batches(torch, cfg, stream, device: str):
+    """``step -> batch``: the stream's tokens and labels; an
+    encoder-decoder's frames are ``TRAIN_SEQ`` rows of seeded N(0, 1) f32
+    a sequence, drawn from a generator seeded with the step."""
+    def batch_at(i):
+        b = stream.batch_at(i, device)
+        if cfg.encoder_layers:
+            gen = torch.Generator(device=device).manual_seed(10 ** 4 + i)
+            b["embeds"] = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
+                                      generator=gen, device=device)
+        return b
+    return batch_at
+
+
+def family_phase(torch, rec: dict, arch: str, device: str = "cuda") -> dict:
+    """Phase 18 for one family (see the module docstring)."""
+    import numpy as np
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.steps import make_train_config
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    cfg = family_config(arch)
+    _, want_params, want_step, want_deploy = FAMILIES[arch]
+    with torch.device("meta"):
+        forms = family_forms(cfg, build_model(cfg))
+    if forms != (want_step, want_deploy):
+        raise AssertionError(f"{arch}: closed forms {forms}, written "
+                             f"{(want_step, want_deploy)}")
+    tc = make_train_config(arch, total_steps=FAMILY_STEPS, warmup_steps=1)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch_at = family_batches(torch, cfg, stream, device)
+    spans = None
+    if arch == FAMILY_PROFILED:     # the mamba conv and scan, forward and
+        from repro_torch.models import mamba        # recompute
+        spans = ((mamba, "causal_conv", "ssm"), (mamba, "ssm_scan", "ssm"))
+    rt, params, out = train_run(torch, cfg, tc, batch_at, FAMILY_STEPS,
+                                want_step, want_params, spans, device)
+    serve_cfg, state = serving_state(cfg, params)
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = stream.batch_at(10 ** 6, "cpu")["tokens"][0, :DEPLOY_TOKENS]
+    prompt = prompt.numpy().astype(np.int64)
+    extra = None
+    if cfg.encoder_layers:
+        gen = torch.Generator(device=device).manual_seed(10 ** 6)
+        extra = {"embeds": torch.randn(1, FAMILY_FRAMES, cfg.d_model,
+                                       generator=gen, device=device)}
+    out["deploy"] = deploy_trained(torch, rec, f"{arch} train", serve_cfg,
+                                   state, prompt, want_deploy, extra,
+                                   device=device)
+    if cfg.encoder_layers:
+        t1 = time.perf_counter()
+        cut = cfg.replace(n_layers=FAMILY_RESUME_LAYERS,
+                          encoder_layers=FAMILY_RESUME_LAYERS)
+        resume_stream = TokenStream(cut.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=1)
+        out["resume"] = exact_resume(torch, cut, tc, family_batches(
+            torch, cut, resume_stream, device), device)
+        out["resume_s"] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  {arch} in {out['phase_s']:.1f} s (deployment "
+        f"{out['deploy']['deploy_s']:.1f} s"
+        + (f", resume check {out['resume_s']:.1f} s" if "resume_s" in out
+           else "") + ")")
     return out
 
 
@@ -3951,6 +4202,12 @@ def pallas_config():
 
 def main(argv) -> int:
     t_start = time.perf_counter()
+    marks: list = []
+
+    def header(msg: str) -> None:
+        """A phase's first line, with the seconds since the start."""
+        marks.append((msg.split(":")[0], time.perf_counter()))
+        log(f"[{marks[-1][1] - t_start:.1f} s] {msg}")
     # cuBLAS's workspace as PyTorch sizes it on Hopper, set before the
     # first handle: phase 17 may need deterministic algorithms
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3967,7 +4224,7 @@ def main(argv) -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import build
-    log("phase 1: build")
+    header("phase 1: build")
     t0 = time.perf_counter()
     logs = build.build(build.KERNELS, force=True)
     log(f"  built {', '.join(build.KERNELS)} for sm_90a in "
@@ -4007,36 +4264,36 @@ def main(argv) -> int:
                 replaces="src/repro/kernels/xbar_mvm/kernel.py:72",
                 launches=0, launches_by_path={}, max_abs_err=0.0,
                 shapes=[])
-    log("phase 2: trq_group_mvm against its plain version")
+    header("phase 2: trq_group_mvm against its plain version")
     k1_phase(torch, rec)
-    log("phase 3: serve full-width llama3.2-3b on pallas")
+    header("phase 3: serve full-width llama3.2-3b on pallas")
     cfg = pallas_config()
     serve = serve_phase(torch, rec, cfg)
     torch.cuda.empty_cache()
-    log("phase 5: trq_quant against its plain version, both entries")
+    header("phase 5: trq_quant against its plain version, both entries")
     k2_phase(torch, rec2)
     score = k2_score_phase(torch, rec2)
-    log("phase 6: xbar_mvm against its plain version and an f64 control")
+    header("phase 6: xbar_mvm against its plain version and an f64 control")
     k3_phase(torch, rec3)
-    log("phase 6: xbar_mvm against its plain version at the CNNs' shapes")
+    header("phase 6: xbar_mvm against its plain version at the CNNs' shapes")
     cnn_k3_phase(torch, rec3)
-    log("phase 7: serve full-width llama3.2-3b on bit_exact")
+    header("phase 7: serve full-width llama3.2-3b on bit_exact")
     cfg_be = cfg.replace(pim_backend="bit_exact")
     serve_be = bit_exact_phase(torch, rec3, cfg_be)
     torch.cuda.empty_cache()
-    log("phase 8: Algorithm 1 on the card, then serve the calibrated "
+    header("phase 8: Algorithm 1 on the card, then serve the calibrated "
         "registers")
     qs, calib = calibrate_phase(torch, rec2, cfg_be)
     torch.cuda.empty_cache()
-    log("phase 9: the serve bench on full-width llama3.2-3b, pallas and "
+    header("phase 9: the serve bench on full-width llama3.2-3b, pallas and "
         "bit_exact; mixed_archs with rwkv6-7b and whisper-medium")
     bench = serve_bench_phase(torch, cfg, qs)
     torch.cuda.empty_cache()
-    log("phase 10: the noise seam")
+    header("phase 10: the noise seam")
     noise = noise_phase(torch, cfg_be)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 11: serve full-width {RWKV_ARCH} on pallas and bit_exact "
+    header(f"phase 11: serve full-width {RWKV_ARCH} on pallas and bit_exact "
         f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
         f"allocated)")
     t11 = time.perf_counter()
@@ -4044,7 +4301,7 @@ def main(argv) -> int:
     rwkv["phase_s"] = time.perf_counter() - t11
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 12: serve full-width {WHISPER_ARCH} on pallas and "
+    header(f"phase 12: serve full-width {WHISPER_ARCH} on pallas and "
         f"bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
         f"still allocated)")
     t12 = time.perf_counter()
@@ -4052,7 +4309,7 @@ def main(argv) -> int:
     whisper["phase_s"] = time.perf_counter() - t12
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 13: serve full-width {GRANITE_ARCH} on pallas and "
+    header(f"phase 13: serve full-width {GRANITE_ARCH} on pallas and "
         f"bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
         f"still allocated)")
     t13 = time.perf_counter()
@@ -4060,7 +4317,7 @@ def main(argv) -> int:
     granite["phase_s"] = time.perf_counter() - t13
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 14: serve full-width {JAMBA_ARCH} ({JAMBA_LAYERS} layers) "
+    header(f"phase 14: serve full-width {JAMBA_ARCH} ({JAMBA_LAYERS} layers) "
         f"on pallas and bit_exact "
         f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
         f"allocated)")
@@ -4069,7 +4326,7 @@ def main(argv) -> int:
     jamba["phase_s"] = time.perf_counter() - t14
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 15: the paper's evaluation: LeNet-5 and ResNet-20 trained, "
+    header(f"phase 15: the paper's evaluation: LeNet-5 and ResNet-20 trained, "
         f"Figs. 3, 6, 6c and 7, quickstart's steps 4 and 5 "
         f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
         f"allocated)")
@@ -4081,7 +4338,7 @@ def main(argv) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         cfg16 = dense_config(arch, n_layers)
-        log(f"phase 16: serve {arch} ({cfg16.n_layers} layers) on pallas "
+        header(f"phase 16: serve {arch} ({cfg16.n_layers} layers) on pallas "
             f"and bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} "
             f"GiB still allocated)")
         t16 = time.perf_counter()
@@ -4089,10 +4346,18 @@ def main(argv) -> int:
         dense[arch]["phase_s"] = time.perf_counter() - t16
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 17: train full-width {ARCH} on fake_quant, resume exactly, "
+    header(f"phase 17: train full-width {ARCH} on fake_quant, resume exactly, "
         f"deploy on pallas ({torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         f"GiB still allocated)")
     train = train_phase(torch, rec, train_config())
+    families = {}
+    for arch in FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        header(f"phase 18: train full-width {arch} on fake_quant, deploy on "
+            f"pallas ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+            f"still allocated)")
+        families[arch] = family_phase(torch, rec, arch)
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -4122,6 +4387,11 @@ def main(argv) -> int:
     log(json.dumps({"cnn": cnn}))
     log(json.dumps({"dense": dense}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"train_families": families}))
+    marks.append(("end", time.perf_counter()))
+    log("seconds by phase: " + ", ".join(
+        f"{name} {t1 - t0:.1f}" for (name, t0), (_, t1) in
+        zip(marks, marks[1:])))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())

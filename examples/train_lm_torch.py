@@ -5,6 +5,13 @@ must drop.
 
   PYTHONPATH=src python examples/train_lm_torch.py [--steps 200] \
       [--d-model 512] [--device cpu]
+
+``--arch`` trains a registry config instead (at ``--smoke``, the reduced
+one), with the batches of ``repro_torch.launch.train`` (an
+encoder-decoder's zero frames):
+
+  PYTHONPATH=src python examples/train_lm_torch.py --arch whisper-medium \
+      --smoke --device cpu --steps 30 --batch 2 --seq 32
 """
 import argparse
 import os
@@ -15,7 +22,8 @@ from repro_torch import runtime
 from repro_torch.ckpt.checkpoint import wait_pending
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.synthetic import TokenStream
-from repro_torch.models.registry import get_config, init
+from repro_torch.launch.train import REFUSED, make_batch_at
+from repro_torch.models.registry import ARCHS, get_config, init
 from repro_torch.train.loop import Trainer
 
 
@@ -29,17 +37,27 @@ def main(argv=None):
     ap.add_argument("--vocab", type=int, default=4096)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default=None,
+                    choices=[a for a in ARCHS if a not in REFUSED],
+                    help="a registry config instead of the ~100M llama")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: the reduced config")
     args = ap.parse_args(argv)
 
-    # ~100M params: 8 layers x d512 (ffn 4x) + 4k vocab
-    cfg = get_config("llama3.2-3b").replace(
-        n_layers=args.layers, d_model=args.d_model, n_heads=8, n_kv_heads=4,
-        d_ff=4 * args.d_model, vocab_size=args.vocab, remat="none",
-        attn_chunk_q=args.seq, attn_chunk_k=args.seq)
-    n_params_est = (cfg.vocab_size * cfg.d_model * 2
-                    + cfg.n_layers * 3.5 * cfg.d_model * cfg.d_ff)
-    print(f"model ~{n_params_est / 1e6:.0f}M params, "
-          f"{args.steps} steps, batch {args.batch} x seq {args.seq}")
+    if args.arch:
+        cfg = get_config(args.arch, smoke=args.smoke)
+        print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+              f"{args.steps} steps, batch {args.batch} x seq {args.seq}")
+    else:
+        # ~100M params: 8 layers x d512 (ffn 4x) + 4k vocab
+        cfg = get_config("llama3.2-3b").replace(
+            n_layers=args.layers, d_model=args.d_model, n_heads=8,
+            n_kv_heads=4, d_ff=4 * args.d_model, vocab_size=args.vocab,
+            remat="none", attn_chunk_q=args.seq, attn_chunk_k=args.seq)
+        n_params_est = (cfg.vocab_size * cfg.d_model * 2
+                        + cfg.n_layers * 3.5 * cfg.d_model * cfg.d_ff)
+        print(f"model ~{n_params_est / 1e6:.0f}M params, "
+              f"{args.steps} steps, batch {args.batch} x seq {args.seq}")
 
     tc = TrainConfig(learning_rate=1e-3, total_steps=args.steps,
                      warmup_steps=args.steps // 10,
@@ -52,7 +70,7 @@ def main(argv=None):
     rt = runtime.compile(cfg, init(cfg, seed=0, device=args.device),
                          device=args.device, plan=None, tc=tc)
     trainer = Trainer(train_step=lambda p, o, b, i: rt.train_step(
-        p, o, b, i)[0], batch_at=lambda i: stream.batch_at(i, rt.device),
+        p, o, b, i)[0], batch_at=make_batch_at(cfg, stream, rt.device),
         tc=tc, ckpt_dir=ckpt_dir, log_every=10, cfg=cfg)
     _, _, report = trainer.run(
         rt.params, rt.opt_init(), num_steps=args.steps,

@@ -12,16 +12,22 @@ path).  Every ``--ckpt-every`` steps an asynchronous checkpoint is written
 in the reference's format; ``--resume`` restarts from the newest one
 (exact: the data stream is stateless).  There is no mesh: one device.
 
-The dense and MoE decoders train (llama3.2-3b, deepseek-7b, glm4-9b,
-deepseek-67b, granite-moe-3b-a800m, arctic-480b at ``--smoke``): their
-train steps are held to the reference's.  rwkv6-7b, jamba-v0.1-52b,
-whisper-medium and internvl2-76b are refused until theirs are.
+Every arch whose train step is held to the reference's trains: the dense
+and MoE decoders (llama3.2-3b, deepseek-7b, glm4-9b, deepseek-67b,
+granite-moe-3b-a800m, arctic-480b at ``--smoke``), rwkv6-7b, the
+mamba/attention hybrid jamba-v0.1-52b and the encoder-decoder
+whisper-medium.  A batch carries what the reference's CLI adds: zero
+``embeds`` of 8 rows for a frontend, of ``--seq`` frames for an encoder.
+internvl2-76b is refused: the reference cannot train it either (see
+``REFUSED``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+
+import torch
 
 from .. import runtime
 from ..ckpt.checkpoint import latest_step, restore_train_state, wait_pending
@@ -30,14 +36,35 @@ from ..models.registry import ARCHS, get_config, init
 from ..train.loop import Trainer
 from .steps import make_train_config
 
-# archs whose train step is not yet held to the reference's (ROADMAP.md,
-# queue 1, "the next training slice")
-NOT_YET = {
-    "rwkv6-7b": "the chunked WKV scan's train step",
-    "jamba-v0.1-52b": "the mamba scan's train step",
-    "whisper-medium": "the encoder-decoder's train step (frames)",
-    "internvl2-76b": "the patch frontend's train step",
+FRONTEND_ROWS = 8      # the reference CLI's zero frontend rows a sequence
+# archs the reference's own train step fails on
+REFUSED = {
+    "internvl2-76b": (
+        "the reference cannot train it either: its CLI adds 8 patch rows "
+        "to every batch, its forward returns logits over F + S rows, and "
+        "its loss (src/repro/train/loop.py:34-35) broadcasts them against "
+        "the S labels and fails (ROADMAP.md, section 3)"),
 }
+
+
+def make_batch_at(cfg, stream: TokenStream, device):
+    """``step -> batch``: the stream's ``tokens`` and ``labels`` with the
+    zero f32 ``embeds`` the reference's CLI adds, ``(B, 8, d)`` for a
+    ``patch``/``frames`` frontend, then ``(B, seq, d)`` frames for an
+    encoder in their place."""
+    def batch_at(step):
+        b = stream.batch_at(step, device)
+        rows = None
+        if cfg.frontend in ("patch", "frames"):
+            rows = FRONTEND_ROWS
+        if cfg.encoder_layers:
+            rows = stream.seq_len
+        if rows is not None:
+            b["embeds"] = torch.zeros((stream.batch, rows, cfg.d_model),
+                                      dtype=torch.float32,
+                                      device=b["tokens"].device)
+        return b
+    return batch_at
 
 
 def main(argv=None):
@@ -59,10 +86,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-json", default=None)
     args = ap.parse_args(argv)
-    if args.arch in NOT_YET:
-        ap.error(f"--arch {args.arch}: {NOT_YET[args.arch]} is not held to "
-                 f"the reference yet (ROADMAP.md, queue 1: the next "
-                 f"training slice)")
+    if args.arch in REFUSED:
+        ap.error(f"--arch {args.arch} does not train: {REFUSED[args.arch]}")
 
     cfg = get_config(args.arch, smoke=args.smoke).replace(
         pim_backend=args.pim)
@@ -88,7 +113,7 @@ def main(argv=None):
 
     trainer = Trainer(
         train_step=lambda p, o, b, i: rt.train_step(p, o, b, i)[0],
-        batch_at=lambda i: stream.batch_at(i, rt.device), tc=tc,
+        batch_at=make_batch_at(cfg, stream, rt.device), tc=tc,
         ckpt_dir=args.ckpt_dir, cfg=cfg)
     params, opt_state, report = trainer.run(
         params, opt_state, start_step=start, num_steps=args.steps,

@@ -7,6 +7,11 @@ causal rope-free self-attention, cross-attention to the encoder output, and
 the MLP; logits are an f32 product with the tied embedding table.
 
 The reference scans both stacks; the port loops over ``enc`` and ``dec``.
+In train mode with gradients on, ``cfg.remat`` (any value but ``none``,
+as the reference's ``jax.checkpoint`` of both scan bodies) recomputes each
+encoder and decoder layer in backward (``torch.utils.checkpoint``,
+non-reentrant) with A/D metering muted; the cross-KV projections run
+outside the checkpointed bodies, as in the reference.
 Every projection of a stack shares one QuantState name with no depth
 (``enc/attn/wq``, ``dec/xattn/wk``, ``frontend/frame_proj``), as the
 reference's scanned stacks do.  The serving cache is one dict::
@@ -22,15 +27,18 @@ positions start at ``len0``.  At decode, cross-attention reads the whole
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import Attention, apply_cross_attention, encoder_kv
 from .layers import (MLP, Embed, LayerNorm, PimContext, PimLinear, cdtype,
                      no_aux, pdtype, sinusoid_at, sinusoid_pos)
+from .lm import REMAT
 
 STATIC_KEYS = ("xk", "xv")      # cache leaves written at prefill only
 
@@ -38,6 +46,16 @@ STATIC_KEYS = ("xk", "xv")      # cache leaves written at prefill only
 def paged_keys(cfg: ModelConfig) -> tuple:
     """Cache leaves that scale with the cache length."""
     return ("k", "v") + STATIC_KEYS
+
+
+def _run(layer, remat: bool, ctx: PimContext, *args, **kw):
+    """``layer(*args, **kw)``, recomputed in backward when ``remat`` (the
+    recompute counts no A/D ops)."""
+    if not remat:
+        return layer(*args, **kw)
+    return checkpoint(layer, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          ctx.muted()), **kw)
 
 
 class EncoderLayer(nn.Module):
@@ -98,14 +116,20 @@ class EncDec(nn.Module):
             if isinstance(mod, PimLinear):
                 mod.path = path
 
-    def encode(self, frames: torch.Tensor, ctx: PimContext) -> torch.Tensor:
+    def remat(self, mode: str) -> bool:
+        """Whether this forward recomputes its layers in backward."""
+        return mode == "train" and self.cfg.remat in REMAT and \
+            torch.is_grad_enabled()
+
+    def encode(self, frames: torch.Tensor, ctx: PimContext,
+               remat: bool = False) -> torch.Tensor:
         """frames: (B, T, D) precomputed frame embeddings."""
         cfg = self.cfg
         x = self.frontend["frame_proj"](frames.to(cdtype(cfg)), ctx)
         x = x + sinusoid_pos(x.shape[1], cfg.d_model, x.dtype,
                              x.device)[None]
         for layer in self.enc:
-            x = layer(x, ctx)
+            x = _run(layer, remat, ctx, x, ctx)
         return self.enc_norm(x, cfg.norm_eps)
 
     def cross_kv(self, enc_out: torch.Tensor, ctx: PimContext) -> list:
@@ -131,7 +155,8 @@ class EncDec(nn.Module):
         for i, layer in enumerate(self.dec):
             lc = None if cache is None else {
                 "k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
-            x, nc = layer(x, ctx, xkv[i], cache=lc)
+            x, nc = _run(layer, self.remat(mode), ctx, x, ctx, xkv[i],
+                         cache=lc)
             if nc is not None:
                 stacks["k"].append(nc["k"])
                 stacks["v"].append(nc["v"])
@@ -170,7 +195,7 @@ class EncDec(nn.Module):
         if embeds is None:
             raise ValueError(f"{self.cfg.name}: {mode} needs the frame "
                              f"embeddings ('embeds')")
-        xkv = self.cross_kv(self.encode(embeds, ctx), ctx)
+        xkv = self.cross_kv(self.encode(embeds, ctx, self.remat(mode)), ctx)
         logits, nc = self.decode_stack(tokens, ctx, xkv, cache=cache,
                                        mode=mode)
         if nc is not None:

@@ -24,6 +24,7 @@ round its output to bf16).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -176,16 +177,22 @@ def auto_range_fit(a, w, trq: TRQParams, grid,
 def fake_quant_mvm_grouped(a_g, w_g, trq: TRQParams, grid, out_dtype,
                            ste: bool = False, auto_range: bool = False,
                            with_ops: bool = False):
-    """Grouped-operand core of :func:`fake_quant_mvm`."""
+    """Grouped-operand core of :func:`fake_quant_mvm`.  With ``ste`` the
+    auto-range fit, the quantizer and its op count run outside autograd:
+    no gradient reaches them through the straight-through estimator, so
+    none of their (..., G, N) intermediates is kept for backward."""
     grid = torch.as_tensor(grid, dtype=torch.float32, device=a_g.device)
     trq = trq.to(a_g.device)
-    if auto_range:
-        trq = auto_range_fit_grouped(a_g, w_g, trq, grid)
+    outside = torch.no_grad if ste else contextlib.nullcontext
+    with outside():
+        if auto_range:
+            trq = auto_range_fit_grouped(a_g, w_g, trq, grid)
     p = _group_psums(a_g, w_g)                          # (..., G, N) f32
-    scaled = p / grid
-    q = trq_quant(scaled, trq) * grid
+    with outside():
+        scaled = p / grid
+        q = trq_quant(scaled, trq) * grid
     if ste:
-        q = p + (q - p).detach()
+        q = p + (q - p.detach())            # q's value, p's gradient
     acc = torch.sum(q, dim=-2).to(out_dtype)            # (..., N)
     if with_ops:
         return acc, trq_ad_ops(scaled, trq).sum(dtype=torch.int64)

@@ -236,7 +236,15 @@ class Runtime:
         layers included).  ``params`` other than ``Runtime.params`` are
         copied into the model first; the model's parameters and
         ``opt_state`` are updated in place and returned.  ``batch`` holds
-        ``tokens`` and ``labels`` (B, S) and, for a frontend, ``embeds``."""
+        ``tokens`` and ``labels`` (B, S) and, for an encoder-decoder, its frames
+        as ``embeds``; a patch frontend's ``embeds`` raise ``ValueError``
+        before any forward (its logits would have F + S rows)."""
+        if self.cfg.frontend == "patch" and "embeds" in batch:
+            raise ValueError(
+                f"{self.cfg.name}: the patch rows prefix the sequence, so "
+                f"the forward returns logits over F + S rows against S "
+                f"labels; the reference's loss (src/repro/train/loop.py:"
+                f"34-35) fails on the same batch")
         step_fn, _ = self._train_pair()
         if params is not self.params:
             with torch.no_grad():

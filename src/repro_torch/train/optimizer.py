@@ -148,13 +148,19 @@ def make_optimizer(tc: TrainConfig, cfg):
                     m.copy_(m_new)
                     store(v, v_new)
                 elif members[0].ndim >= 2:
-                    # per layer: every rule acts on the last two axes
+                    # per layer: every rule acts on the last two axes, so
+                    # a rank-3 member (an expert bank) goes expert by
+                    # expert: the same values, and temporaries of one
+                    # expert's size
                     for i, (p, n) in enumerate(zip(members, names)):
-                        p_new, m_new, v_new = upd(p, grads[n], m[i],
-                                                  member(v, i), decay)
-                        p.copy_(p_new)
-                        m[i].copy_(m_new)
-                        store(member(v, i), v_new)
+                        for j in (range(len(p)) if p.ndim >= 3
+                                  else (slice(None),)):
+                            vi = member(member(v, i), j)
+                            p_new, m_new, v_new = upd(p[j], grads[n][j],
+                                                      m[i][j], vi, decay)
+                            p[j].copy_(p_new)
+                            m[i][j].copy_(m_new)
+                            store(vi, v_new)
                 else:
                     # rank-1 layer leaves: factored across layers, stacked
                     p_new, m_new, v_new = upd(

@@ -130,6 +130,35 @@ def _case(arch, backend) -> Case:
     return Case(jcfg, tcfg, np_(p), np_(o), np_(stream.batch_at(STEP)))
 
 
+def _batch_at(jcfg, stream, seed: int, step: int) -> dict:
+    """The reference stream's batch as numpy; an encoder-decoder's frames
+    are seeded normals ``(B, S, d)`` f32 as ``embeds``."""
+    b = jax.tree.map(np.asarray, stream.batch_at(step))
+    if jcfg.encoder_layers:
+        b["embeds"] = np.random.default_rng((seed, step)).standard_normal(
+            b["tokens"].shape + (jcfg.d_model,)).astype(np.float32)
+    return b
+
+
+@functools.lru_cache(maxsize=None)
+def _warm_case(arch, backend, seed, batch, seq):
+    """(Case, the reference's params after step ``STEP`` as numpy, its
+    metrics): every step, 0 to ``STEP``, through one jitted step, the
+    reference ``Runtime``'s (one compile a case).  Read only."""
+    jcfg, tcfg = _cfgs(arch, backend)
+    p = jbuild(jcfg)[0](jax.random.PRNGKey(seed))
+    rj = jrt.compile(jcfg, p, plan=None, tc=JTrainConfig(**TC))
+    o = rj.opt_init(p)
+    stream = JTokenStream(jcfg.vocab_size, seq, batch, seed=seed)
+    for i in range(STEP):
+        (p, o, _), _ = rj.train_step(p, o, _batch_at(jcfg, stream, seed, i),
+                                     i)
+    np_ = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    c = Case(jcfg, tcfg, np_(p), np_(o), _batch_at(jcfg, stream, seed, STEP))
+    (p, _, m), _ = rj.train_step(p, o, c.batch, STEP)
+    return c, np_(p), {k: float(v) for k, v in m.items()}
+
+
 def _ref_step(c: Case):
     """The reference's ``Runtime.train_step`` (its jitted step with the
     A/D tally) at ``STEP``: (params, metrics) as numpy."""
@@ -449,7 +478,8 @@ def test_trainer_history_and_watchdog():
 def test_train_cli_runs_checkpoints_and_resumes(tmp_path, capsys):
     """``--smoke --device cpu``: three steps with a checkpoint at step 2,
     finite losses; ``--resume`` picks the checkpoint up at step 2 and runs
-    step 2 again; the refused archs name the roadmap item."""
+    step 2 again; the refused arch (internvl2-76b, which the reference
+    cannot train either) names the reason's record in the roadmap."""
     ck = str(tmp_path / "ck")
     log = tmp_path / "log.json"
     args = ["--arch", LLAMA, "--smoke", "--device", "cpu", "--batch", "2",
@@ -465,8 +495,7 @@ def test_train_cli_runs_checkpoints_and_resumes(tmp_path, capsys):
     assert train_cli.main(args + ["--steps", "3", "--resume"]) == 0
     out = capsys.readouterr().out
     assert "resumed from step 2" in out and "step     2 loss" in out
-    for arch in ("rwkv6-7b", "jamba-v0.1-52b", "whisper-medium",
-                 "internvl2-76b"):
+    for arch in train_cli.REFUSED:
         with pytest.raises(SystemExit):
             train_cli.main(["--arch", arch, "--smoke", "--device", "cpu"])
         assert "ROADMAP.md" in capsys.readouterr().err
