@@ -300,16 +300,17 @@ which fails the run on any error:
            (phase 6), the phase's seconds by stage and its peak memory.
 16. dense  the reference's last four LM configs at every published width,
            bf16, seeded random weights, one at a time (each freed before
-           the next): deepseek-7b (30 layers, d=4,096, 32 query and 32 KV
-           heads, d_ff 11,008, vocab 102,400, an untied ``lm_head``) and
-           glm4-9b (40 layers, 32 query and 2 KV heads, d_ff 13,696, vocab
-           151,552, untied) at full depth; deepseek-67b (d=8,192, 64/8
+           the next): deepseek-7b (d=4,096, 32 query and 32 KV heads,
+           d_ff 11,008, vocab 102,400, an untied ``lm_head``) cut to 15 of
+           30 layers and glm4-9b (32 query and 2 KV heads, d_ff 13,696,
+           vocab 151,552, untied) to 20 of 40; deepseek-67b (d=8,192, 64/8
            heads, d_ff 22,016, vocab 102,400) cut to 14 of 95 layers and
            internvl2-76b (d=8,192, 64/8 heads, d_ff 28,672, vocab 128,256,
            the patch frontend) cut to 11 of 80 (``DENSE_ARCHS``: half the
-           depth that fits the card, so that the script with phase 18
-           keeps its time limit; 28 and 22 fit the bf16 weights, the
-           ``bit_exact`` masks and the plain-K3 check's column blocks).  Each runs phase 3's
+           depth that fits the card, so that the script with phases 18
+           and 19 keeps its time limit; 28 and 22 fit the bf16 weights,
+           the ``bit_exact`` masks and the plain-K3 check's column
+           blocks).  Each runs phase 3's
            trace on ``pallas``, then on ``bit_exact``, through the paged
            engine asked for prefix reuse (on for the three dense decoders,
            kept off by the engine for internvl2, whose every request
@@ -390,10 +391,24 @@ which fails the run on any error:
            forward+backward and optimizer, tokens/s, peak memory, one
            jamba step's ``torch.profiler`` split (phase 17's spans and
            the ``ssm`` span: the conv and the scan, forward and
-           recompute), the seconds of each family.
+           recompute), the seconds of each family;
+19. mesh   the multi-device layer on the card: a one-rank NCCL process
+           group (a ``HashStore``, ``MESH_SETUP_S`` to come up, else the
+           run fails) and ``launch.mesh.make_host_mesh()`` = (1, 1).
+           Full-width llama3.2-3b on ``pallas``, compiled with ``mesh=``
+           (every parameter a DTensor placed by ``param_pspecs``, each
+           layer gathering its own), serves phase 3's trace: its greedy
+           tokens and per-request A/D ops must equal phase 3's, bitwise,
+           and every projection launch K1.  Then two
+           ``Runtime.train_setup`` steps of full-width llama3.2-3b on
+           ``fake_quant`` (the ZeRO-1 optimizer state DTensors) against
+           two mesh-less steps from the same seed: loss, A/D ops and
+           every parameter equal, bitwise.  Prints the mesh, the
+           placements of ``layers.0.attn.wq.w`` and of one Adam moment,
+           and the phase's seconds.
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
-12, 13, 14, 16, 17 and 18 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
+12, 13, 14, 16, 17, 18 and 19 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
 calibration of phase 8 for both of K2's entries, phase 15 for all three)
 and read just after; launches that compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -416,6 +431,10 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+# the card's rates, one source with the dry run's roofline
+from repro_torch.telemetry.roofline import (  # noqa: E402
+    B1_OPS_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S)
 ARCH = "llama3.2-3b"
 N_LAYERS = 28
 PROJ_PER_LAYER = 7                 # wq wk wv wo w_gate w_up w_down
@@ -514,11 +533,12 @@ JAMBA_ROW = 25_030_656             # conversions of a row through all 75
 JAMBA_PREFILL_ROW = 22_933_504     # ... of a prefill row (no lm_head)
 JAMBA_SCAN_LEN = 1024              # phase 14: four 256-token chunks
 # phase 16: the reference's last four LM configs, each with its depth cut
-# (None: every layer).  The two d = 8,192 models are cut to half the depth
-# where the card's 80 GB still hold the bf16 weights, the bit_exact masks
-# (1 byte a planned weight) and the plain-K3 check's column blocks (28 and
-# 22 layers): the script's time limit
-DENSE_ARCHS = (("deepseek-7b", None), ("glm4-9b", None),
+# for the script's time limit.  The two d = 8,192 models are cut to half
+# the depth where the card's 80 GB still hold the bf16 weights, the
+# bit_exact masks (1 byte a planned weight) and the plain-K3 check's column
+# blocks (28 and 22 layers); deepseek-7b and glm4-9b, which fit whole, to
+# half theirs (15 of 30, 20 of 40) once phase 19 was added
+DENSE_ARCHS = (("deepseek-7b", 15), ("glm4-9b", 20),
                ("deepseek-67b", 14), ("internvl2-76b", 11))
 # (K, N) that phase 16 brings to K1 and K3: glm4's wk/wv and MLP,
 # deepseek-7b's MLP, at d = 8,192 wq/wo (and internvl2's patch_proj),
@@ -574,8 +594,6 @@ PARAM_GRID = [dict(n_r1=4, n_r2=4, m=3, bias=0.0),    # tests/test_kernels.py
               dict(n_r1=3, n_r2=5, m=4, bias=3.0),
               dict(n_r1=7, n_r2=7, m=0, bias=0.0)]
 R1_REGS = [r for r in PARAM_GRID if r["n_r1"] != r["n_r2"]]
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
 FLOAT_TOL = 1e-5
 MAX_FLIP_FRACTION = 1e-3
@@ -584,10 +602,6 @@ FLIP_SAMPLE = 2 ** 16              # phase 2: least outputs a case's flip
 LOGIT_CTRL_FACTOR = 3.0           # phase 4: pallas within 3x the control
 LOGIT_REL_FLOOR = 1e-2
 DEPTH_CTRL_MAX = 0.1               # phases 4, 11: depths held to the bar
-# one-bit AND-popcount tensor cores (K3's type): the data sheet gives no
-# rate, so the highest that tools/k3_mma_rates.cu measured (mma.m16n8k256,
-# an H100 80GB HBM3 at 700 W)
-B1_OPS_PER_S = 9064.3e12
 CALIB_SAMPLES = 65536              # core.calibrate.MAX_CALIB_SAMPLES
 K2_BIG = 2 ** 26
 SCORE_TABLES = ("param_grid", "normal", "other")   # phase 5's scoring
@@ -630,7 +644,6 @@ def card_line() -> str:
 
 
 def import_port():
-    sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch
     where = os.path.dirname(os.path.abspath(repro_torch.__file__))
     if not where.startswith(os.path.join(HERE, "src")):
@@ -996,7 +1009,9 @@ def run_trace(torch, rt, cfg, counter, kname: str) -> dict:
                 total_ad_ops=st["total_ad_ops"], forwards=calls,
                 launches=launches, wall_s=wall, rows=rows,
                 tokens=[list(r.generated) for r in
-                        sorted(done, key=lambda r: r.uid)])
+                        sorted(done, key=lambda r: r.uid)],
+                request_ops=[r.ad_ops for r in
+                             sorted(done, key=lambda r: r.uid)])
 
 
 def wall_ms(torch, fn, reps: int = 5) -> float:
@@ -1229,6 +1244,8 @@ def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     log(f"  A/D ops equal the closed form {want} ({run['rows']} token rows)")
     serve = {k: run[k] for k in ("tokens_per_s", "mean_ttft_ms",
                                  "total_ad_ops", "forwards", "wall_s")}
+    # phase 19 serves the same trace on a (1, 1) mesh against these
+    serve["trace"] = {k: run[k] for k in ("tokens", "request_ops")}
     serve["gib_after_compile"] = gib
     prompts = trace_prompts(cfg)
 
@@ -4192,6 +4209,128 @@ def family_phase(torch, rec: dict, arch: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the (1, 1) mesh on the card
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 2               # phase 19: steps with and without a mesh
+MESH_SETUP_S = 120                 # phase 19: the NCCL group's time limit
+
+
+def mesh_train(torch, cfg, mesh, device: str) -> dict:
+    """``MESH_TRAIN_STEPS`` steps of ``cfg`` from seed 0, on ``mesh``
+    through ``Runtime.train_setup`` or (None) through ``train_step``:
+    losses, A/D ops, the parameters on the host, the seconds."""
+    from repro_torch import runtime
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.steps import make_train_config
+    from repro_torch.models.registry import init
+    t0 = time.perf_counter()
+    tc = make_train_config(cfg.name, total_steps=TRAIN_STEPS,
+                           warmup_steps=1)
+    rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
+                         device=device, plan=None, tc=tc, mesh=mesh)
+    if mesh is None:
+        opt = rt.opt_init()
+
+        def step(p, o, b, i):
+            return rt.train_step(p, o, b, i)[0]
+    else:
+        step, opt_init, _, o_specs = rt.train_setup()
+        opt = opt_init()
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    losses, ops = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        _, opt, m = step(rt.params, opt, stream.batch_at(i, device), i)
+        losses.append(float(m["loss"]))
+        ops.append(int(m["ad_ops"]))
+    torch.cuda.synchronize()
+    out = {"loss": losses, "ad_ops": ops,
+           "params": {n: p.full_tensor().detach().cpu() if mesh is not None
+                      else p.detach().cpu() for n, p in rt.params.items()},
+           "s": time.perf_counter() - t0}
+    if mesh is not None:
+        moment = opt["m"]["embed/tok"]
+        out["placements"] = {
+            "layers.0.attn.wq.w": str(rt.params["layers.0.attn.wq.w"]
+                                      .placements),
+            "m/embed/tok": f"{moment.placements} spec "
+                           f"{o_specs['m']['embed/tok']}"}
+    del rt, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(torch, rec: dict, cfg, trace: dict,
+               device: str = "cuda") -> dict:
+    """Phase 19: a one-rank NCCL group (a ``HashStore``, a time limit) and
+    ``make_host_mesh()`` = (1, 1).  Full-width llama3.2-3b on ``pallas``
+    compiled with ``mesh=`` serves phase 3's trace (``trace``: its greedy
+    tokens and per-request A/D ops), bitwise; two ``train_setup`` steps on
+    ``fake_quant`` equal two mesh-less steps from the same seed, bitwise
+    (loss, A/D ops, every parameter)."""
+    from repro_torch import runtime
+    from repro_torch.dist.group import destroy, init_local
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import init
+    t0 = time.perf_counter()
+    init_local("nccl", 1, 0, timeout_s=MESH_SETUP_S)
+    try:
+        mesh = make_host_mesh(device)
+        if tuple(mesh.shape) != (1, 1):
+            raise AssertionError(f"host mesh {tuple(mesh.shape)}, not (1, 1)")
+        log(f"  mesh {mesh} up in {time.perf_counter() - t0:.1f} s")
+        state = init(cfg, seed=0, device=device)
+        rt = runtime.compile(cfg, state, device=device, mesh=mesh)
+        del state
+        log(f"  {rt}")
+        run = run_trace(torch, rt, cfg, k1, "K1")
+        rec["launches_by_path"][f"{cfg.name} on the (1, 1) mesh"] = \
+            run["launches"]
+        if run["tokens"] != trace["tokens"]:
+            raise AssertionError("the (1, 1) mesh served other tokens than "
+                                 "phase 3")
+        if run["request_ops"] != trace["request_ops"]:
+            raise AssertionError(f"per-request A/D ops {run['request_ops']} "
+                                 f"!= phase 3's {trace['request_ops']}")
+        log(f"  the trace's tokens and per-request A/D ops equal phase 3's "
+            f"({run['launches']} K1 launches)")
+        serve_s = run["wall_s"]
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tcfg = train_config()
+        alone = mesh_train(torch, tcfg, None, device)
+        meshed = mesh_train(torch, tcfg, mesh, device)
+        for key in ("loss", "ad_ops"):
+            if meshed[key] != alone[key]:
+                raise AssertionError(f"{key}: mesh {meshed[key]} != "
+                                     f"mesh-less {alone[key]}")
+        diff = [n for n, p in alone["params"].items()
+                if not torch.equal(meshed["params"][n], p)]
+        if diff:
+            raise AssertionError(f"{len(diff)} parameters differ after "
+                                 f"{MESH_TRAIN_STEPS} steps, e.g. {diff[:3]}")
+        log(f"  {MESH_TRAIN_STEPS} train steps: loss {meshed['loss']}, "
+            f"A/D ops {meshed['ad_ops']}, all {len(alone['params'])} "
+            f"parameters equal, bitwise ({alone['s']:.1f} s mesh-less, "
+            f"{meshed['s']:.1f} s on the mesh)")
+        for name, where in meshed["placements"].items():
+            log(f"  placements of {name}: {where}")
+    finally:
+        destroy()
+    out = {"mesh": [1, 1], "serve_wall_s": serve_s,
+           "train_loss": meshed["loss"], "train_ad_ops": meshed["ad_ops"],
+           "train_s": {"mesh_less": alone["s"], "mesh": meshed["s"]},
+           "placements": meshed["placements"],
+           "phase_s": time.perf_counter() - t0}
+    log(f"  phase 19 in {out['phase_s']:.1f} s")
+    return out
+
+
 def pallas_config():
     from repro_torch.models.registry import get_config
     cfg = get_config(ARCH).replace(param_dtype="bfloat16",
@@ -4358,6 +4497,13 @@ def main(argv) -> int:
             f"pallas ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
             f"still allocated)")
         families[arch] = family_phase(torch, rec, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    header(f"phase 19: the (1, 1) mesh: serve phase 3's trace and train "
+           f"{ARCH} through the meshed Runtime "
+           f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+           f"allocated)")
+    mesh = mesh_phase(torch, rec, cfg, serve["trace"])
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 
@@ -4388,6 +4534,7 @@ def main(argv) -> int:
     log(json.dumps({"dense": dense}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_families": families}))
+    log(json.dumps({"mesh": mesh}))
     marks.append(("end", time.perf_counter()))
     log("seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (name, t0), (_, t1) in

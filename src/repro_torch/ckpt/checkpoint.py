@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..dist.sharding import assign, whole
 
 _PENDING: list = []
 _DTYPES = {torch.float32: "float32", torch.float64: "float64",
@@ -65,7 +66,7 @@ def _unflatten_into(template, flat: dict, prefix: str = ""):
 def _host(leaf):
     """A leaf -> (host copy, dtype name, shape): the snapshot."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True).contiguous()
+        t = whole(leaf.detach()).to("cpu", copy=True).contiguous()
         return t, _DTYPES[t.dtype], list(t.shape)
     arr = np.array(leaf)
     return arr, str(arr.dtype), list(arr.shape)
@@ -208,7 +209,7 @@ def restore_train_state(ckpt_dir: str, params: dict, opt_state: dict, cfg,
                              f"{tuple(src.shape)}, the state "
                              f"{dst.dtype} {tuple(dst.shape)}")
         with torch.no_grad():
-            dst.copy_(src)
+            assign(dst, src.to(dst.device))
     for name, t in convert.unstack_ref(tree["params"], cfg).items():
         put(params[name], t, f"params/{name}")
     flat_opt = _flatten(tree["opt"])

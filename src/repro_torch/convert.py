@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dist.sharding import whole
+
 
 def _flatten(tree: dict, prefix: str = ""):
     for key, val in tree.items():
@@ -116,7 +118,7 @@ def stack_ref(state: dict, cfg, device="cpu") -> dict:
     their members."""
     out = {}
     for path, names in ref_groups(state, cfg).items():
-        members = [state[n].detach().to(device) for n in names]
+        members = [whole(state[n].detach()).to(device) for n in names]
         out[path] = torch.stack(members) if stacked(path, cfg) \
             else members[0]
     return out

@@ -3,13 +3,16 @@
 Port of ``repro.core.quant_state``.  ``QuantState`` maps layer names
 (param-path-style strings such as ``layer_0/attn/wq``) to
 :class:`~repro_torch.core.trq.TRQParams` through an ordered regex rule table
-(first match wins).  The port passes the state explicitly (``Runtime``
-owns it) instead of through an ambient context.  The JSON format is the
+(first match wins).  A ``Runtime`` owns its state and passes it
+explicitly; ``use_quant_state`` installs an ambient one, which
+``runtime.compile`` and a ``PimContext`` built without a ``quant_state``
+take, as the reference's.  The JSON format is the
 reference's, versioned (``"version": 1``), so a file written by
 ``repro.core.quant_state.save_quant_state`` loads here unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -40,6 +43,31 @@ class QuantState:
 
     def __len__(self) -> int:
         return len(self.rules)
+
+
+# ---------------------------------------------------------------------------
+# ambient state (mirrors dist.sharding.use_mesh)
+# ---------------------------------------------------------------------------
+
+_ACTIVE: dict = {"qs": None}
+
+
+@contextlib.contextmanager
+def use_quant_state(qs: Optional[QuantState]):
+    """Install ``qs`` as the active per-layer register file in the dynamic
+    extent.  ``None`` is a no-op (keeps call sites unconditional).
+    Nestable; restores the outer state."""
+    prev = _ACTIVE["qs"]
+    if qs is not None:
+        _ACTIVE["qs"] = qs
+    try:
+        yield qs
+    finally:
+        _ACTIVE["qs"] = prev
+
+
+def active_quant_state() -> Optional[QuantState]:
+    return _ACTIVE["qs"]
 
 
 def quant_state_from_calibration(cal: Mapping[str, Any], *,

@@ -154,3 +154,26 @@ def trq_ad_ops(x: torch.Tensor, p: TRQParams) -> torch.Tensor:
     r1 = torch.full(xa.shape, p.n_r1 + p.nu, dtype=torch.int32,
                     device=xa.device)
     return torch.where(in_r1(xa, p), r1, r1.new_full((), p.n_r2 + p.nu))
+
+
+def trq_quant_with_ops(x: torch.Tensor, p: TRQParams):
+    """Quantize and count in one call: ``(trq_quant(x, p), trq_ad_ops(x,
+    p))``, the pair the fused kernels return."""
+    return trq_quant(x, p), trq_ad_ops(x, p)
+
+
+# ---------------------------------------------------------------------------
+# Quantization error (Eq. 10 objective) and the ideal case (Eq. 11)
+# ---------------------------------------------------------------------------
+
+def quant_mse(x: torch.Tensor, p: TRQParams) -> torch.Tensor:
+    """Mean squared quantization error of ``x`` under ``p``."""
+    return torch.mean(torch.square(trq_quant(x, p) - x))
+
+
+def ideal_params(r_ideal: int, n_r1: int, n_r2: int) -> TRQParams:
+    """Eq. 11: ``delta_r1 = 1`` (lossless in R1), ``n_r2 + m = r_ideal``,
+    ``bias = 0``; ``r_ideal = ceil(log2(y_max - y_min + 1))`` is the
+    lossless resolution of the integer-valued bit-line output."""
+    m = max(r_ideal - n_r2, 0)
+    return make_params(delta_r1=1.0, bias=0.0, n_r1=n_r1, n_r2=n_r2, m=m)

@@ -1,3 +1,3 @@
-"""repro_torch.data — the synthetic datasets of the paper's evaluation
-(``vision_dataset``; the LM ``TokenStream`` comes with training)."""
-from .synthetic import vision_dataset
+"""repro_torch.data — the synthetic datasets: the LM ``TokenStream``
+(and ``lm_batch``, one of its batches) and the paper's ``vision_dataset``."""
+from .synthetic import TokenStream, lm_batch, vision_dataset

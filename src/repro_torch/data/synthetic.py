@@ -58,6 +58,12 @@ class TokenStream:
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
 
+def lm_batch(vocab: int, seq: int, batch: int, step: int = 0,
+             seed: int = 0, device=None) -> dict:
+    """Batch ``step`` of a ``TokenStream(vocab, seq, batch, seed)``."""
+    return TokenStream(vocab, seq, batch, seed).batch_at(step, device)
+
+
 def vision_dataset(n: int, hw: int = 28, ch: int = 1, n_classes: int = 10,
                    seed: int = 0, noise: float = 0.35, split: int = 0,
                    device=None):

@@ -35,8 +35,13 @@ _LOCK = threading.Lock()
 
 
 def route(t) -> str:
-    """'cpu' or 'cuda' for a tensor; raises for any other device."""
+    """'cuda' for a CUDA tensor, whose wrapper launches the kernel;
+    'cpu' for a CPU tensor and for a ``meta`` one (no data: the dry run's
+    shapes), whose wrapper takes the plain version; raises for any other
+    device."""
     kind = t.device.type
+    if kind == "meta":
+        return "cpu"
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for tensors on {t.device}")
     return kind

@@ -33,6 +33,15 @@ def trq_group_mvm_2d(a: torch.Tensor, w: torch.Tensor, scalars, *,
               auto_range=auto_range)
 
 
+def psum_amax(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """max |partial sum| of ``a (..., K) @ w (K, N)`` over its 128-row
+    groups, computed as the plain version computes its auto-range input
+    (what a split batch reduces before the kernel runs)."""
+    from .ref import group_psums
+    return torch.amax(torch.abs(group_psums(
+        a.reshape(-1, a.shape[-1]).float(), w)))
+
+
 def weight_operand(w: torch.Tensor) -> torch.Tensor:
     """``w`` as the kernel reads it: bf16 or f32 as it is, any other dtype
     widened to f32."""

@@ -13,6 +13,18 @@ from ...core.trq import TRQParams, auto_range_delta, trq_ad_ops, trq_quant
 XBAR = 128
 
 
+def group_psums(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) x (K, N) -> the (M, G, N) f32 partial sums of the 128-row
+    groups (K zero-padded to whole groups)."""
+    mm, k = a.shape
+    n = w.shape[1]
+    pad = (-k) % XBAR
+    g = (k + pad) // XBAR
+    a_g = F.pad(a.float(), (0, pad)).reshape(mm, g, XBAR)
+    w_g = F.pad(w.float(), (0, 0, 0, pad)).reshape(g, XBAR, n)
+    return torch.einsum("mgx,gxn->mgn", a_g, w_g)
+
+
 def trq_group_mvm_ref(a: torch.Tensor, w: torch.Tensor,
                       scalars: torch.Tensor, *, n_r1: int, n_r2: int, m: int,
                       nu: int = 1, mode: str = "twin",
@@ -21,13 +33,10 @@ def trq_group_mvm_ref(a: torch.Tensor, w: torch.Tensor,
     scalars: [delta_r1, bias, grid] f32.  With ``auto_range`` the partial
     sums' max |psum| scales ``delta_r1`` first (:func:`auto_range_delta`).
     Returns (y (M, N) f32, ops 0-dim int64 over the valid region)."""
-    mm, k = a.shape
+    mm = a.shape[0]
     n = w.shape[1]
-    pad = (-k) % XBAR
-    g = (k + pad) // XBAR
-    a_g = F.pad(a.float(), (0, pad)).reshape(mm, g, XBAR)
-    w_g = F.pad(w.float(), (0, 0, 0, pad)).reshape(g, XBAR, n)
-    psum = torch.einsum("mgx,gxn->mgn", a_g, w_g)       # (M, G, N) f32
+    psum = group_psums(a, w)                            # (M, G, N) f32
+    g = psum.shape[1]
     grid = scalars[2]
     delta_r1 = scalars[0]
     if auto_range:

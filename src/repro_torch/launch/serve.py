@@ -16,7 +16,10 @@ prints the per-request A/D-conversion and energy table.  An
 encoder-decoder (``--arch whisper-medium``) gets 8 zero frames per prompt
 as its encoder input, and a patch frontend (``--arch internvl2-76b``) 8
 zero patch embeddings as its sequence prefix, as the reference launcher
-feeds them.
+feeds them.  The run is on the host mesh (``launch.mesh.make_host_mesh``:
+``(1, 1)`` on one card, ``(n, 1)`` over the ranks of a process group): on
+more than one rank every parameter and the page pools are DTensors on it;
+on one rank nothing is placed (the same numbers, without the hooks).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..models.registry import ARCHS, get_config, init
 from ..pim.backend import list_backends
 from ..serve.engine import ServeEngine
 from ..telemetry.serve_report import format_energy_report, serve_report
+from .mesh import host_mesh, sharding_mesh
 
 
 def frames_stub(cfg, n_frames: int = 8):
@@ -81,7 +85,11 @@ def main(argv=None):
                     help="print the per-request A/D-energy table")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    with host_mesh(args.device) as mesh:
+        return _serve(args, mesh)
 
+
+def _serve(args, mesh) -> int:
     cfg = get_config(args.arch, smoke=args.smoke).replace(
         pim_backend=args.pim, param_dtype="bfloat16", remat="none")
     qs = None
@@ -96,8 +104,10 @@ def main(argv=None):
           f"prefix_reuse={args.prefix_reuse}")
 
     state = init(cfg, seed=args.seed, device=device)
+    print(f"mesh={tuple(mesh.shape)}")
     rt = runtime.compile(cfg, state, device=device, quant_state=qs,
-                         plan=args.plan if not args.backend else None)
+                         plan=args.plan if not args.backend else None,
+                         mesh=sharding_mesh(mesh))
     if args.backend:
         rt = rt.with_overrides(backend=args.backend, plan=args.plan)
         print(f"backend override: serving on {rt.backend!r}")

@@ -10,7 +10,12 @@ Trains seeded random weights (f32 masters, the config's compute dtype) of
 straight-through estimator (``pallas`` and ``bit_exact`` have no gradient
 path).  Every ``--ckpt-every`` steps an asynchronous checkpoint is written
 in the reference's format; ``--resume`` restarts from the newest one
-(exact: the data stream is stateless).  There is no mesh: one device.
+(exact: the data stream is stateless).  The run is on the host mesh
+(``launch.mesh.make_host_mesh``: ``(1, 1)`` on one card, ``(n, 1)`` over
+the ranks of a process group): on more than one rank it goes through
+``Runtime.train_setup``, the parameters and the ZeRO-1 optimizer state
+DTensors on the mesh; on one rank it runs the mesh-less step, which
+gives the same numbers without the placement's hooks.
 
 Every arch whose train step is held to the reference's trains: the dense
 and MoE decoders (llama3.2-3b, deepseek-7b, glm4-9b, deepseek-67b,
@@ -34,7 +39,8 @@ from ..ckpt.checkpoint import latest_step, restore_train_state, wait_pending
 from ..data.synthetic import TokenStream
 from ..models.registry import ARCHS, get_config, init
 from ..train.loop import Trainer
-from .steps import make_train_config
+from .mesh import host_mesh, sharding_mesh
+from .steps import MOE_FFN_SHARD_DATA, make_train_config
 
 FRONTEND_ROWS = 8      # the reference CLI's zero frontend rows a sequence
 # archs the reference's own train step fails on
@@ -88,6 +94,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.arch in REFUSED:
         ap.error(f"--arch {args.arch} does not train: {REFUSED[args.arch]}")
+    with host_mesh(args.device) as mesh:
+        return _train(args, mesh)
+
+
+def _train(args, mesh) -> int:
 
     cfg = get_config(args.arch, smoke=args.smoke).replace(
         pim_backend=args.pim)
@@ -97,11 +108,22 @@ def main(argv=None):
                            microbatch=args.microbatch,
                            checkpoint_every=args.ckpt_every)
     print(f"arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
-          f"device={args.device} pim={cfg.pim_backend}")
+          f"device={args.device} mesh={tuple(mesh.shape)} "
+          f"pim={cfg.pim_backend}")
+    moe_fsdp = args.arch in MOE_FFN_SHARD_DATA
     rt = runtime.compile(cfg, init(cfg, seed=args.seed, device=args.device),
-                         device=args.device, plan=None, tc=tc)
+                         device=args.device, plan=None, tc=tc,
+                         mesh=sharding_mesh(mesh),
+                         moe_ffn_shard_data=moe_fsdp)
+    if rt.mesh is None:
+        opt_init = rt.opt_init
+
+        def step(params, opt_state, batch, i):
+            return rt.train_step(params, opt_state, batch, i)[0]
+    else:
+        step, opt_init, _, _ = rt.train_setup(moe_ffn_shard_data=moe_fsdp)
     params = rt.params
-    opt_state = rt.opt_init()
+    opt_state = opt_init()
     stream = TokenStream(cfg.vocab_size, args.seq, args.batch,
                          seed=args.seed)
 
@@ -112,7 +134,7 @@ def main(argv=None):
         print(f"resumed from step {start}")
 
     trainer = Trainer(
-        train_step=lambda p, o, b, i: rt.train_step(p, o, b, i)[0],
+        train_step=step,
         batch_at=make_batch_at(cfg, stream, rt.device), tc=tc,
         ckpt_dir=args.ckpt_dir, cfg=cfg)
     params, opt_state, report = trainer.run(

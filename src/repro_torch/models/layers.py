@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig, TRQConfig
+from ..core.quant_state import active_quant_state
 from ..core.trq import TRQParams, make_params
 from ..pim.backend import get_backend, record_ad_ops, zero_ops
 from ..pim.plan import run_prepared
@@ -41,9 +42,14 @@ def trq_params_from_cfg(t: TRQConfig) -> TRQParams:
                        n_r2=t.n_r2, m=t.m, signed=t.signed)
 
 
+_AMBIENT = object()
+
+
 class PimContext:
     """One forward call's execution context: the backend name, the
-    QuantState, the PimPlan, the CrossbarModel (noise-aware backends; None
+    QuantState (when not given, the ambient ``use_quant_state`` one, as
+    the reference's ``pim_linear`` reads it; an explicit ``None`` means
+    none), the PimPlan, the CrossbarModel (noise-aware backends; None
     leaves them the ambient one) and the running A/D-op total (a 0-dim
     int64 tensor on the device, so metering never syncs the host).  Each
     call's ops also go to the per-layer census when one is open
@@ -52,11 +58,13 @@ class PimContext:
     step counts each forward conversion once, as the reference's traced
     tally does."""
 
-    def __init__(self, cfg: ModelConfig, backend: str, quant_state=None,
-                 plan=None, device=None, crossbar_model=None):
+    def __init__(self, cfg: ModelConfig, backend: str,
+                 quant_state=_AMBIENT, plan=None, device=None,
+                 crossbar_model=None):
         self.cfg = cfg
         self.backend = backend
-        self.quant_state = quant_state
+        self.quant_state = active_quant_state() \
+            if quant_state is _AMBIENT else quant_state
         self.plan = plan
         self.crossbar_model = crossbar_model
         self.ops = zero_ops(device)

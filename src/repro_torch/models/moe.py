@@ -70,8 +70,10 @@ def apply_moe(moe: "MoE", x: torch.Tensor, cfg: ModelConfig):
     probs, gate, idx = route(xt, moe.router.w, k)
     # Switch aux loss: E * sum_e (mean router prob e) * (frac choices to e)
     me = probs.mean(dim=(0, 1))
-    ce = torch.bincount(idx.reshape(-1), minlength=e).to(probs.dtype) \
-        / float(idx.numel())
+    flat = idx.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))    # bincount's
+    ce = counts.to(probs.dtype) / float(idx.numel())
     aux = (e * torch.sum(me * ce)).float()
 
     cap = capacity(group, k, cfg.capacity_factor, e)

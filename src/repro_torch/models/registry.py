@@ -45,6 +45,10 @@ def _module_name(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
 
 
+def list_archs():
+    return ARCHS
+
+
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")

@@ -29,7 +29,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.trq import TRQParams
+from ..core.trq import TRQParams, auto_range_delta
+from ..dist.group import batch_is_split, global_max, global_sum
 from .crossbar import PimConfig, fake_quant_mvm, offset_encode
 
 
@@ -126,9 +127,10 @@ def ad_ops_tally():
 
 def record_ad_ops(name: Optional[str], ops: torch.Tensor) -> None:
     """Add one call's ops to the innermost open tally; with none open this
-    is a list test and nothing else (no tensor op, no host sync)."""
+    is a list test and nothing else (no tensor op, no host sync).  On a
+    mesh that splits the batch the tally records the whole batch's."""
     if _TALLY:
-        _TALLY[-1].add(name or "<unnamed>", ops)
+        _TALLY[-1].add(name or "<unnamed>", global_sum(ops))
 
 
 def zero_ops(device) -> torch.Tensor:
@@ -144,9 +146,11 @@ def _stable_recip(s) -> torch.Tensor:
 
 def _dynamic_scales(x, w, a_scale, w_scale, levels: float = 127.0):
     """Max-abs per-tensor scales (None -> dynamic) in the operand's dtype,
-    as the reference computes them."""
+    as the reference computes them; the activations' maximum is the whole
+    batch's on a mesh that splits it (``dist.group.global_max``)."""
     if a_scale is None:
-        a_scale = torch.clamp_min(torch.amax(torch.abs(x)), 1e-6) / levels
+        a_scale = torch.clamp_min(global_max(torch.amax(torch.abs(x))),
+                                  1e-6) / levels
     if w_scale is None:
         w_scale = torch.clamp_min(torch.amax(torch.abs(w)), 1e-6) / levels
     return a_scale, w_scale
@@ -177,6 +181,20 @@ def fake_quant_backend(x, w, trq, *, a_scale=None, w_scale=None,
     return PimOut(y, ops)
 
 
+def split_fit(x, w, trq: TRQParams, grid, auto_range: bool):
+    """K1 fits an auto-ranged register to the rows it is given.  While a
+    mesh splits the batch, the fit must see every rank's rows: the
+    partial sums' maximum is taken here (a plain pass, as K1's plain
+    version takes it), reduced over the data axes, and the kernel runs on
+    the fitted register.  Returns ``(trq, auto_range)`` for the launch."""
+    if not (auto_range and batch_is_split()):
+        return trq, auto_range
+    from ..kernels.trq_group_mvm.ops import psum_amax
+    vmax = global_max(psum_amax(x, w))
+    return trq.replace(delta_r1=auto_range_delta(
+        trq.delta_r1, vmax, grid, trq.n_r2 + trq.m)), False
+
+
 @register_backend("pallas")
 def pallas_backend(x, w, trq, *, a_scale=None, w_scale=None,
                    delta_grid: float = 1.0, auto_range: bool = False,
@@ -188,15 +206,17 @@ def pallas_backend(x, w, trq, *, a_scale=None, w_scale=None,
     from ..kernels.trq_group_mvm import trq_group_mvm
     a_s, w_s = _dynamic_scales(x, w, a_scale, w_scale)
     grid = grid_scale(a_s, w_s, delta_grid, x.device)
-    y, ops = trq_group_mvm(x, w, trq.to(x.device), grid, 1.0, with_ops=True,
+    trq, auto_range = split_fit(x, w, trq.to(x.device), grid, auto_range)
+    y, ops = trq_group_mvm(x, w, trq, grid, 1.0, with_ops=True,
                            auto_range=auto_range)
     return PimOut(y.to(x.dtype), ops)
 
 
 def ptq_scale(t: torch.Tensor, bits: int) -> torch.Tensor:
     """Max-abs symmetric scale of an f32 tensor for ``bits``-bit ints,
-    a multiply by the reciprocal constant (the reference's chain)."""
-    return torch.clamp_min(torch.amax(torch.abs(t)), 1e-6) * \
+    a multiply by the reciprocal constant (the reference's chain); the
+    maximum is the whole batch's on a mesh that splits it."""
+    return torch.clamp_min(global_max(torch.amax(torch.abs(t))), 1e-6) * \
         (1.0 / (2 ** (bits - 1) - 1))
 
 

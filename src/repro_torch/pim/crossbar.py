@@ -158,8 +158,10 @@ def _group_psums(a_g: torch.Tensor, w_g: torch.Tensor) -> torch.Tensor:
 
 def auto_range_fit_grouped(a_g, w_g, trq: TRQParams, grid) -> TRQParams:
     """:func:`auto_range_fit` on pre-grouped operands.  Stays on the
-    device: no host sync."""
-    vmax = torch.amax(torch.abs(_group_psums(a_g, w_g)))
+    device: no host sync.  The maximum is the whole batch's on a mesh that
+    splits it."""
+    from ..dist.group import global_max
+    vmax = global_max(torch.amax(torch.abs(_group_psums(a_g, w_g))))
     return trq.replace(
         delta_r1=auto_range_delta(trq.delta_r1, vmax, grid,
                                   trq.n_r2 + trq.m),

@@ -1,15 +1,25 @@
 """One explicit execution context: the ``Runtime`` object (port of
-``repro.runtime.runtime``, single device, no mesh).
+``repro.runtime.runtime``).
 
     rt = repro_torch.runtime.compile(cfg, state)       # device: cuda
     (logits, cache, _), report = rt.apply(batch)       # report.ad_ops
 
-A ``Runtime`` owns the model on its device, the backend name, the
-per-layer ``QuantState``, the ``CrossbarModel`` of the simulated device,
-the weight-stationary ``PimPlan`` and the entry
+A ``Runtime`` owns the model on its device, the mesh (when it has one),
+the backend name, the per-layer ``QuantState``, the ``CrossbarModel`` of
+the simulated device, the weight-stationary ``PimPlan`` and the entry
 points ``prefill`` / ``prefill_cont`` / ``decode`` / ``apply`` / ``mvm``,
 each returning ``(out, AdOpsReport)``.  PyTorch runs eagerly, so there is
 nothing to jit; every serving entry point runs under ``torch.no_grad``.
+
+On a mesh (``compile(..., mesh=...)`` or an active ``use_mesh``) every
+parameter is a DTensor placed by ``param_pspecs`` and each layer gathers
+its own for its forward (``dist.sharding.gather_hooks``).  Every rank runs
+the same program: an entry point takes the whole batch, the data axes
+split its rows when they divide it (``dist.group``), the dynamic scales,
+the auto-range maximum and the A/D count are reduced over them, and the
+logits and the cache come back whole, so every rank returns what one
+device would.  A Runtime whose parameters are on the ``meta`` device is
+*abstract*: its steps run on no data (the dry run's cells).
 
 Training (``opt_init``, ``train_step``) runs on the differentiable
 backends (``exact``, and ``fake_quant`` through its straight-through
@@ -19,17 +29,22 @@ state in place, as the reference's ``donate=True``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
 
 from ..configs.base import ModelConfig, TrainConfig
+from ..core import quant_state as qs_mod
 from ..core.energy import adc_energy_pj
 from ..core.quant_state import QuantState, save_quant_state
 from ..device import resolve_device
+from ..dist import group, sharding
 from ..models.layers import PimContext, pim_linear
 from ..models.registry import build_model, model_module
-from ..pim.backend import get_backend
+from ..pim import backend as backend_mod
+from ..pim import noise as noise_mod
+from ..pim.backend import active_backend, get_backend
 from ..pim.noise import (CrossbarModel, active_crossbar_model,
                          crossbar_token, is_noise_aware)
 from ..pim.plan import (PimPlan, check_plan, has_prepared, prepare_params,
@@ -63,10 +78,13 @@ class Runtime:
                  quant_state: Optional[QuantState], plan: Optional[PimPlan],
                  device: torch.device, plan_enabled: bool = True,
                  crossbar_model: Optional[CrossbarModel] = None,
-                 tc: Optional[TrainConfig] = None):
+                 tc: Optional[TrainConfig] = None, mesh=None,
+                 moe_ffn_shard_data: bool = False):
         self.cfg = cfg
         self.model = model
         self.tc = tc
+        self.mesh = mesh
+        self.moe_ffn_shard_data = moe_ffn_shard_data
         self.params = dict(model.named_parameters())
         self._train = None              # (train_step, opt_init), built once
         self._step_ctx = None           # the PimContext of the running step
@@ -85,7 +103,35 @@ class Runtime:
                 f"{'yes' if self.quant_state is not None else 'no'}, "
                 f"crossbar_model="
                 f"{'yes' if self.crossbar_model is not None else 'no'}, "
-                f"device={self.device})")
+                f"device={self.device}, mesh="
+                f"{None if self.mesh is None else sharding.mesh_str(self.mesh)}"
+                f")")
+
+    @contextlib.contextmanager
+    def _ambient(self, split: bool = False):
+        """The one place the Runtime installs ambient state: its mesh (and
+        whether the forward holds this rank's share of the batch), then its
+        backend, QuantState and CrossbarModel, force-installed (``None``
+        included), so a ``use_backend``/``use_quant_state`` a caller nests
+        around an entry point never reaches it."""
+        with contextlib.ExitStack() as stack:
+            if self.mesh is not None:
+                stack.enter_context(sharding.use_mesh(self.mesh))
+            stack.enter_context(group.split_batch(split))
+            prev = (backend_mod._ACTIVE["backend"], qs_mod._ACTIVE["qs"],
+                    noise_mod._ACTIVE["cm"])
+            backend_mod._ACTIVE["backend"] = self.backend
+            qs_mod._ACTIVE["qs"] = self.quant_state
+            noise_mod._ACTIVE["cm"] = self.crossbar_model
+            try:
+                yield self
+            finally:
+                (backend_mod._ACTIVE["backend"], qs_mod._ACTIVE["qs"],
+                 noise_mod._ACTIVE["cm"]) = prev
+
+    def _share(self, batch: int) -> Optional[slice]:
+        """This rank's rows of a ``batch``-row call, or None for all."""
+        return group.batch_share(self.mesh, batch)
 
     def _ctx(self) -> PimContext:
         # the Runtime's device model wins over an ambient one, None included
@@ -99,7 +145,12 @@ class Runtime:
         return torch.tensor(x, dtype=dtype, device=self.device)   # a copy
 
     def _forward(self, tokens, *, cache=None, mode: str, positions=None,
-                 extra: Optional[dict] = None):
+                 extra: Optional[dict] = None, whole_cache: bool = True,
+                 cache_is_share: bool = False):
+        """The model forward of an entry point.  On a mesh whose data axes
+        split the batch, this rank runs its rows (``cache_is_share``: the
+        cache holds only those already) and the logits, and unless
+        ``whole_cache`` is False the cache, come back whole."""
         ctx = self._ctx()
         kw = {}
         if positions is not None:
@@ -115,11 +166,27 @@ class Runtime:
                     f"not ported (an encoder-decoder or a patch frontend "
                     f"takes 'embeds')")
             kw.update(self._modality(extra))
-        with torch.no_grad():
-            logits, new_cache, aux = self.model(self._tensor(tokens), ctx,
-                                                cache=cache, mode=mode, **kw)
+        tokens = self._tensor(tokens)
+        share = self._share(len(tokens))
+        if share is not None:
+            tokens = tokens[share]
+            kw = {k: v[share] for k, v in kw.items()}
+            if cache is not None and not cache_is_share:
+                cache = {k: v[share] if v.ndim == 1 else v[:, share]
+                         for k, v in cache.items()}
+        with torch.no_grad(), self._ambient(split=share is not None):
+            logits, new_cache, aux = self.model(tokens, ctx, cache=cache,
+                                                mode=mode, **kw)
+            ops = ctx.ops
+            if share is not None:
+                ops = group.global_sum(ops)
+                logits = group.gather_rows(logits, 0, self.mesh)
+                if new_cache is not None and whole_cache:
+                    new_cache = {k: group.gather_rows(
+                        v, 0 if v.ndim == 1 else 1, self.mesh)
+                        for k, v in new_cache.items()}
         self.forward_calls += 1
-        return logits, new_cache, aux, AdOpsReport(ctx.ops)
+        return logits, new_cache, aux, AdOpsReport(ops)
 
     def _modality(self, extra: dict) -> dict:
         return {"embeds": self._tensor(extra["embeds"], torch.float32)} \
@@ -152,10 +219,17 @@ class Runtime:
         an encoder-decoder takes its frames, a patch frontend its patch
         embeddings (cache rows before the prompt's) as ``extra={"embeds":
         (B, T, D)}``."""
-        cache = self.init_cache(len(tokens), max_len)
-        logits, cache, _, rep = self._forward(tokens, cache=cache,
-                                              mode="prefill", extra=extra)
+        logits, cache, rep = self._prefill(tokens, extra, max_len, True)
         return (logits[:, -1], cache), rep
+
+    def _prefill(self, tokens, extra, max_len: int, whole_cache: bool):
+        share = self._share(len(tokens))
+        rows = len(tokens) if share is None else share.stop - share.start
+        cache = self.init_cache(rows, max_len)
+        logits, cache, _, rep = self._forward(
+            tokens, cache=cache, mode="prefill", extra=extra,
+            whole_cache=whole_cache, cache_is_share=True)
+        return logits, cache, rep
 
     def prefill_cont(self, tokens, positions, cache):
         """Continued prefill against a warm cache (prefix-reuse path)."""
@@ -192,7 +266,7 @@ class Runtime:
         except AttributeError:
             raise KeyError(f"no layer {layer!r} in the model") from None
         ctx = self._ctx()
-        with torch.no_grad():
+        with torch.no_grad(), self._ambient(), sharding.gathered(lin):
             y = pim_linear(lin, x.to(self.device), ctx)
         return y, AdOpsReport(ctx.ops)
 
@@ -225,9 +299,43 @@ class Runtime:
 
     def opt_init(self, params: Optional[dict] = None) -> dict:
         """Optimizer state for the Runtime's ``TrainConfig``, in the
-        reference's layout (``train.optimizer``)."""
-        return self._train_pair()[1](self.params if params is None
-                                     else params)
+        reference's layout (``train.optimizer``); on a mesh each moment
+        is a DTensor placed by :meth:`train_specs` (ZeRO-1)."""
+        params = self.params if params is None else params
+        if self.mesh is None:
+            return self._train_pair()[1](params)
+        return self._train_pair()[1](params, mesh=self.mesh,
+                                     specs=self.train_specs()[1])
+
+    def train_specs(self, moe_ffn_shard_data: Optional[bool] = None):
+        """(parameter specs, optimizer-state specs) on the Runtime's mesh
+        (``train.loop.shardings_for``)."""
+        from ..train.loop import shardings_for
+        from ..train.optimizer import make_optimizer
+        tc = self.tc or TrainConfig()
+        moe = self.moe_ffn_shard_data if moe_ffn_shard_data is None \
+            else moe_ffn_shard_data
+        shapes = {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                  for n, p in self.params.items()}
+        opt_s = make_optimizer(tc, self.cfg)[0](shapes)
+        return shardings_for(self.mesh, shapes, opt_s, tc,
+                             moe_ffn_shard_data=moe, cfg=self.cfg)
+
+    def train_setup(self, *, moe_ffn_shard_data: Optional[bool] = None):
+        """Sharded training assembly for the launchers: ``(step, opt_init,
+        p_specs, o_specs)``, ``step(params, opt_state, batch, i) ->
+        (params, opt_state, metrics)`` with ``metrics['ad_ops']`` and the
+        optimizer state ZeRO-1 placed by ``opt_init()``.  Needs a
+        mesh-owning Runtime."""
+        if self.mesh is None:
+            raise ValueError("train_setup needs a mesh-owning Runtime; "
+                             "compile(..., mesh=...) or enter use_mesh first")
+        p_specs, o_specs = self.train_specs(moe_ffn_shard_data)
+        return self._step, self.opt_init, p_specs, o_specs
+
+    def _step(self, params, opt_state, batch, i):
+        """The launchers' contract: ``(params, opt_state, metrics)``."""
+        return self.train_step(params, opt_state, batch, i)[0]
 
     def train_step(self, params: dict, opt_state: dict, batch: dict, step):
         """One optimizer step: ``((params, opt_state, metrics),
@@ -237,9 +345,12 @@ class Runtime:
         copied into the model first; the model's parameters and
         ``opt_state`` are updated in place and returned.  ``batch`` holds
         ``tokens`` and ``labels`` (B, S) and, for an encoder-decoder, its frames
-        as ``embeds``; a patch frontend's ``embeds`` raise ``ValueError``
-        before any forward (its logits would have F + S rows)."""
-        if self.cfg.frontend == "patch" and "embeds" in batch:
+        as ``embeds``; a patch frontend's F ``embeds`` rows prefix the
+        tokens, so its labels must have F + S rows (the reference's train
+        cell), else ``ValueError`` before any forward."""
+        if self.cfg.frontend == "patch" and "embeds" in batch and \
+                batch["embeds"].shape[1] + batch["tokens"].shape[1] != \
+                batch["labels"].shape[1]:
             raise ValueError(
                 f"{self.cfg.name}: the patch rows prefix the sequence, so "
                 f"the forward returns logits over F + S rows against S "
@@ -253,14 +364,57 @@ class Runtime:
                         live.copy_(params[name])
         batch = {k: self._tensor(v, torch.float32 if k == "embeds"
                                  else torch.int32) for k, v in batch.items()}
+        share = self._share(len(batch["tokens"]))
+        shards = 1
+        if share is not None:
+            batch = {k: v[share] for k, v in batch.items()}
+            shards = group.dp_size(self.mesh)
         ctx = self._step_ctx = self._ctx()
         try:
-            _, opt_state, metrics = step_fn(self.params, opt_state, batch,
-                                            step)
+            with self._ambient(split=share is not None):
+                _, opt_state, metrics = step_fn(self.params, opt_state,
+                                                batch, step, shards=shards)
+                ops = ctx.ops
+                if share is not None:
+                    ops = group.global_sum(ops)
+                    metrics["loss"] = group.global_sum(metrics["loss"])
         finally:
             self._step_ctx = None
-        metrics["ad_ops"] = ctx.ops
-        return (self.params, opt_state, metrics), AdOpsReport(ctx.ops)
+        metrics["ad_ops"] = ops
+        return (self.params, opt_state, metrics), AdOpsReport(ops)
+
+    # -- cell derivation (launch.steps / the dry run) ---------------------------
+
+    def serve_cell_step(self, kind: str, batch_size: int, seq_len: int):
+        """A launch cell's serving step: ``step(params, plan, batch)`` for
+        ``prefill`` (a fresh ``seq_len``-deep cache) or ``step(params,
+        plan, cache, batch)`` for ``decode``, returning (argmax tokens,
+        the new cache as this rank holds it).  The parameters and plan run
+        are the Runtime's own; the arguments carry their placements."""
+        def extra_of(batch):
+            return {k: v for k, v in batch.items() if k == "embeds"}
+
+        if kind == "prefill":
+            def step(params, plan, batch):
+                logits, cache, _ = self._prefill(
+                    batch["tokens"], extra_of(batch), seq_len, False)
+                return torch.argmax(logits[:, -1], -1), cache
+            return step
+
+        def step(params, plan, cache, batch):
+            logits, cache, _, _ = self._forward(
+                batch["tokens"], cache=cache, mode="decode",
+                whole_cache=False)
+            return torch.argmax(logits[:, -1], -1), cache
+        return step
+
+    def train_cell_step(self, tc: Optional[TrainConfig] = None):
+        """A launch cell's training step and its ``opt_init``: ``step(params,
+        opt_state, batch, i) -> (params, opt_state, metrics)``."""
+        if tc is not None:
+            self.tc = tc
+            self._train = None
+        return self._step, self.opt_init
 
     # -- derivation / persistence ---------------------------------------------
 
@@ -294,7 +448,8 @@ class Runtime:
         return Runtime(self.cfg, self.model, backend=new_backend,
                        quant_state=new_qs, plan=built, device=self.device,
                        plan_enabled=plan_enabled, crossbar_model=new_cm,
-                       tc=self.tc)
+                       tc=self.tc, mesh=self.mesh,
+                       moe_ffn_shard_data=self.moe_ffn_shard_data)
 
     def save(self, path: str) -> Optional[str]:
         """Snapshot the register file next to a checkpoint (the versioned
@@ -328,8 +483,11 @@ def _build_plan(cfg, model, backend: str, quant_state, plan,
     if plan is True:
         if not has_prepared(backend):
             return None
-        return prepare_params(model, cfg, quant_state=quant_state,
-                              backend=backend, crossbar_model=crossbar_model)
+        # a plan is replicated: it programs the whole weights
+        with sharding.gathered(model):
+            return prepare_params(model, cfg, quant_state=quant_state,
+                                  backend=backend,
+                                  crossbar_model=crossbar_model)
     if isinstance(plan, PimPlan):
         if plan.backend != backend:
             raise ValueError(f"plan was programmed for backend "
@@ -346,18 +504,28 @@ def _build_plan(cfg, model, backend: str, quant_state, plan,
     return None
 
 
-def compile(cfg: ModelConfig, params: Any, *, device=None,
+def compile(cfg: ModelConfig, params: Any, *, device=None, mesh=None,
             backend: Optional[str] = None,
             quant_state: Optional[QuantState] = None,
             plan: Any = True,
             crossbar_model: Optional[CrossbarModel] = None,
-            tc: Optional[TrainConfig] = None) -> Runtime:
+            tc: Optional[TrainConfig] = None,
+            moe_ffn_shard_data: bool = False) -> Runtime:
     """Build a :class:`Runtime` on ``device`` (default ``cuda``; without a
     GPU, ``device="cpu"`` must be given).
 
+    Resolution (explicit argument > ambient context > config default):
+    ``mesh`` — the argument, else the active ``use_mesh`` mesh, else none;
+    ``backend`` — the argument, else the active ``use_backend`` name, else
+    ``cfg.pim_backend``; ``quant_state`` — the argument, else the active
+    ``use_quant_state`` register file, else none; ``crossbar_model`` —
+    the argument, else the active ``use_crossbar_model`` one.
+
     ``params`` is a state dict (from ``models.init`` or
-    ``convert.from_jax``); its tensors move to the device.  ``backend``
-    defaults to ``cfg.pim_backend``.  ``plan=True`` programs the
+    ``convert.from_jax``); its tensors move to the device.  On ``meta``
+    tensors with ``device="meta"`` the Runtime is abstract.  On a mesh,
+    each parameter becomes a DTensor placed by ``param_pspecs``
+    (``moe_ffn_shard_data`` as there).  ``plan=True`` programs the
     weight-stationary plan, a prebuilt ``PimPlan`` is validated, and
     ``False``/``None`` serves dynamically.  ``crossbar_model`` defaults to
     the ambient ``use_crossbar_model`` one; a non-null model on a
@@ -368,18 +536,29 @@ def compile(cfg: ModelConfig, params: Any, *, device=None,
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    backend = backend or cfg.pim_backend
+    if mesh is None:
+        mesh = sharding.active_mesh()
+    backend = backend or active_backend() or cfg.pim_backend
     get_backend(backend)
+    if quant_state is None:
+        quant_state = qs_mod.active_quant_state()
     if crossbar_model is None:
         crossbar_model = active_crossbar_model()
     _check_model_backend(backend, crossbar_model)
     model = build_model(cfg)
-    model.load_state_dict({k: v.to(device) for k, v in params.items()},
-                          assign=True)
+    state = {k: v.to(device) for k, v in params.items()}
+    if mesh is not None:
+        with sharding.use_mesh(mesh):
+            specs = sharding.param_pspecs(state, moe_ffn_shard_data)
+        state = {k: sharding.place(v, mesh, specs[k])
+                 for k, v in state.items()}
+        sharding.gather_hooks(model)
+    model.load_state_dict(state, assign=True)
     model.eval()
     plan_enabled = plan is True or isinstance(plan, PimPlan)
     built = _build_plan(cfg, model, backend, quant_state, plan,
                         crossbar_model)
     return Runtime(cfg, model, backend=backend, quant_state=quant_state,
                    plan=built, device=device, plan_enabled=plan_enabled,
-                   crossbar_model=crossbar_model, tc=tc)
+                   crossbar_model=crossbar_model, tc=tc, mesh=mesh,
+                   moe_ffn_shard_data=moe_ffn_shard_data)

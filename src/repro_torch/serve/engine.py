@@ -37,6 +37,10 @@ block pool and per-request attribution of each call's ``AdOpsReport``.
   its state over the padding tokens too, as the reference's does.
 * Per-request metering: prefill ops go to their request exactly, a decode
   step's ops are split evenly over the slots that stepped.
+* On a mesh (the Runtime's) the page pools are DTensors placed by
+  ``kvcache.pool_pspecs``; every rank runs the same schedule, and the
+  Runtime's entry points return whole logits, caches and A/D counts, so
+  the host reads (sampling, metering) see the global values.
 * Sampling is greedy (``argmax``) at temperature 0, else categorical from
   the engine's ``torch.Generator`` (the reference's ``jax.random`` stream
   cannot be replayed, so only greedy tokens are comparable across the two).
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from ..core.energy import adc_energy_pj
+from ..dist.sharding import active_mesh
 from .kvcache import ZERO_PAGE, PagedKVCache
 
 
@@ -84,13 +89,24 @@ class Request:
         return self.ad_ops - self.prefill_ad_ops
 
 
+def _batch_axis(big_shape: tuple, small_shape: tuple) -> int:
+    """The axis where a batch-1 cache leaf differs from the slot cache."""
+    for i, (b, s) in enumerate(zip(big_shape, small_shape)):
+        if b != s:
+            return i
+    raise ValueError(f"no batch axis between {big_shape} and {small_shape}")
+
+
 def scatter_cache(big: dict, small: dict, slot: int) -> dict:
     """Insert a batch-1 cache into row ``slot`` of a batched one (every
-    leaf's batch axis is the one the two shapes differ in).  Functional."""
+    leaf's batch axis is the one the two shapes differ in; with one slot,
+    the leading axis of a counter, else the one after the layer stack).
+    Functional."""
     out = {}
     for key, b in big.items():
         s = small[key]
-        ax = 0 if b.ndim == 1 else 1
+        ax = _batch_axis(b.shape, s.shape) if b.shape != s.shape else \
+            0 if b.ndim == 1 else 1
         row = b.clone()
         row.narrow(ax, slot, 1).copy_(s.to(b.dtype))
         out[key] = row
@@ -135,6 +151,9 @@ class ServeEngine:
             self.block_size = self.kv.block_size
             self.state_cache = self.kv.make_state(max_batch)
             self.cache = None
+            mesh = getattr(rt, "mesh", None) or active_mesh()
+            if mesh is not None and self.kv.pools:
+                self.kv.place(mesh)
         else:
             self.kv = None
             self.block_size = 0

@@ -20,6 +20,13 @@ decode bitwise-identical to the dense slot engine.  Pages carry refcounts
 and a free list; full prompt blocks are hash-consed by
 ``(bucket, sha1(padded_tokens[:k*block_size]))`` and shared copy-on-write,
 with LRU eviction of cached prefixes when the pool runs dry.
+
+Under a mesh (``pool_pspecs``) a pool is a DTensor: the page axis stays
+replicated, because the host allocates pages and every data row must
+address them, and the head dims split over ``'model'`` as the dense
+``kv_pspec`` does, so a page costs each rank its share of the heads.
+``kv_pspec``/``cache_pspecs`` are the dense cache's specs, the
+reference's policy.
 """
 from __future__ import annotations
 
@@ -31,9 +38,110 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..dist import sharding
+from ..dist.sharding import P, PartitionSpec
 from ..models.registry import model_module
 
 ZERO_PAGE = 0               # permanently zero; backs unallocated table slots
+
+
+def _axis_size(mesh, axes) -> int:
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    names = sharding.axis_names(mesh)
+    n = 1
+    for a in axes:
+        if a in names:
+            n *= sharding.axis_size(mesh, a)
+    return n
+
+
+def _head_axes(mesh, cfg):
+    """(KV-head entry, head-dim entry): KV heads over 'model' when they
+    divide it, else the head dim, else neither."""
+    names = sharding.axis_names(mesh)
+    model = "model" if "model" in names else None
+    n_m = sharding.axis_size(mesh, model) if model else 1
+    if model and cfg.n_kv_heads % n_m == 0:
+        return model, None
+    if model and cfg.hd % n_m == 0:
+        return None, model
+    return None, None
+
+
+def _dp(mesh) -> tuple:
+    return tuple(a for a in sharding._DP_AXES
+                 if a in sharding.axis_names(mesh))
+
+
+def _batch_entry(mesh, batch: int):
+    dp = _dp(mesh)
+    n_dp = _axis_size(mesh, dp)
+    return dp if (batch % max(n_dp, 1) == 0 and batch >= n_dp) else None
+
+
+def kv_pspec(mesh, cfg, batch: int, stacked: bool = True) -> PartitionSpec:
+    """Spec of a (B, S, KV, hd) cache leaf (with a leading layer-stack dim
+    when ``stacked``): batch over the data axes when it divides them, else
+    the sequence over 'data'; heads as :func:`_head_axes`."""
+    dp = _dp(mesh)
+    n_dp = _axis_size(mesh, dp)
+    batch_ok = batch % n_dp == 0 if n_dp > 1 else True
+    if batch_ok and batch >= n_dp:
+        b_ax, s_ax = dp, None
+    else:
+        b_ax = None
+        s_ax = "data" if "data" in sharding.axis_names(mesh) else None
+    kv_ax, hd_ax = _head_axes(mesh, cfg)
+    spec = (b_ax, s_ax, kv_ax, hd_ax)
+    return P(*((None,) + spec)) if stacked else P(*spec)
+
+
+def cache_pspecs(mesh, cfg, cache: dict, batch: int) -> dict:
+    """{leaf: spec} of a cache from the model's ``init_cache``: K/V (and
+    an encoder-decoder's cross-K/V ``xk``/``xv``) by :func:`kv_pspec`,
+    the batch of every other leaf over the data axes, the recurrent
+    state's channels over 'model'."""
+    kv = kv_pspec(mesh, cfg, batch)
+    b_ax = _batch_entry(mesh, batch)
+    model = "model" if "model" in sharding.axis_names(mesh) else None
+    out = {}
+    for key, leaf in cache.items():
+        nd = leaf.ndim
+        spec = [None] * nd
+        if key in ("k", "v", "xk", "xv"):
+            out[key] = kv if nd == 5 else P(*kv[1:]) if nd == 4 else P()
+            continue
+        if key in ("len", "len0"):
+            spec[-1] = b_ax
+        elif key == "h":              # mamba state (L, B, di, ds)
+            spec[-3], spec[-2] = b_ax, model
+        elif key == "conv":           # (L, B, dc-1, di)
+            spec[-3], spec[-1] = b_ax, model
+        elif key == "s":              # rwkv state (L, B, H, hs, hs)
+            spec[-4], spec[-3] = b_ax, model
+        elif key == "x_prev":         # (L, B, 1, D)
+            spec[-3] = b_ax
+        out[key] = P(*spec)
+    return out
+
+
+def pool_pspecs(mesh, cfg, pools: dict) -> dict:
+    """{pool: spec} of ``PagedKVCache.pools`` (each ``(num_blocks, L,
+    block_size, KV, hd)``): the page axis replicated, the head dims as
+    :func:`kv_pspec` splits them."""
+    kv_ax, hd_ax = _head_axes(mesh, cfg)
+    out = {}
+    for key, leaf in pools.items():
+        spec = [None] * leaf.ndim
+        if leaf.ndim >= 4:
+            spec[-2], spec[-1] = kv_ax, hd_ax
+        out[key] = P(*spec)
+    return out
+
+
+def _local(t):
+    """A pool's storage on this rank (its DTensor's local block)."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 @dataclasses.dataclass
@@ -103,11 +211,36 @@ class PagedKVCache:
         t = torch.as_tensor(tables, dtype=torch.long, device=self.device)
         out = dict(state)
         for key, pool in self.pools.items():
-            g = pool[t]                          # (B, np, L, bs, KV, hd)
+            g = _local(pool)[t]                  # (B, np, L, bs, KV, hd)
+            if pool is not _local(pool):
+                g = self._whole_heads(pool, g)
             b, n_pages, n_l, bs = g.shape[:4]
             out[key] = g.permute(2, 0, 1, 3, 4, 5).reshape(
                 n_l, b, n_pages * bs, *g.shape[4:])
         return out
+
+    def place(self, mesh) -> None:
+        """Place the pools on ``mesh`` by :func:`pool_pspecs`."""
+        specs = pool_pspecs(mesh, self.cfg, self.pools)
+        self.pools = {k: sharding.place(v, mesh, specs[k])
+                      for k, v in self.pools.items()}
+
+    @staticmethod
+    def _whole_heads(pool, g: torch.Tensor) -> torch.Tensor:
+        """Pages gathered from a pool's local block -> their whole heads
+        (the gathered pages have one more leading dim than the pool)."""
+        from torch.distributed.tensor import DTensor, Shard
+        pl = [Shard(p.dim + 1) if p.is_shard() else p
+              for p in pool.placements]
+        return DTensor.from_local(g, pool.device_mesh, pl,
+                                  run_check=False).full_tensor()
+
+    @staticmethod
+    def _own_heads(pool, data: torch.Tensor) -> torch.Tensor:
+        """Whole-head blocks -> this rank's share of their heads."""
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(data, pool.device_mesh, pool.placements,
+                                 src_data_rank=None).to_local()
 
     def write_blocks(self, cache: dict, slots, blks, pages,
                      skip_static: bool = False) -> None:
@@ -125,13 +258,15 @@ class PagedKVCache:
                 continue
             leaf = cache[key].unflatten(2, (-1, self.block_size))
             data = leaf[:, s, b].transpose(0, 1)   # (A, L, bs, KV, hd)
-            pool[p] = data.to(pool.dtype)
+            if pool is not _local(pool):
+                data = self._own_heads(pool, data)
+            _local(pool)[p] = data.to(pool.dtype)
         self._track_peak()
 
     def _zero_pages(self, pages) -> None:
         p = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for pool in self.pools.values():
-            pool[p] = 0
+            _local(pool)[p] = 0
 
     # -- page bookkeeping ------------------------------------------------------
 
@@ -220,7 +355,7 @@ class PagedKVCache:
             return page
         [fresh] = self.alloc_pages(1)
         for pool in self.pools.values():
-            pool[fresh] = pool[page]
+            _local(pool)[fresh] = _local(pool)[page]
         self.release([page])
         table[blk] = fresh
         self.stats["cow_copies"] += 1

@@ -5,8 +5,8 @@ straggler watchdog and periodic asynchronous checkpoints.
 The reference differentiates its functional forward with
 ``jax.value_and_grad``; here the forward is the model's own, and
 ``torch.autograd.grad`` takes the gradients of the parameters that
-``train_step`` is given.  ``shardings_for`` (the ZeRO-1 placement) waits
-for the multi-GPU port.
+``train_step`` is given.  ``shardings_for`` gives the specs of the
+parameters and of the ZeRO-1 optimizer state on a mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, TrainConfig
+from ..convert import ref_groups, stacked
+from ..dist.sharding import P, param_pspecs, use_mesh, zero1_upgrade
 from .optimizer import lr_schedule, make_optimizer
 
 AUX_LOSS_WEIGHT = 0.01
@@ -43,46 +45,103 @@ def make_train_step(apply_fn: Callable, cfg: ModelConfig, tc: TrainConfig):
     aux)`` runs the model's train-mode forward on the parameters that
     ``train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics)`` is given (a dict of the model's own leaf tensors, which the
-    step updates in place).  With ``tc.microbatch`` below the batch, the
+    step updates in place; on a mesh, DTensors).  With ``tc.microbatch`` below the batch, the
     batch is split into ``nb`` microbatches whose losses and gradients are
     each divided by ``nb`` and summed, as the reference's scan does."""
     opt_init, opt_update = make_optimizer(tc, cfg)
     lr_fn = lr_schedule(tc)
 
-    def loss_and_grads(tensors, batch):
+    def loss_and_grads(tensors, batch, shards: int):
         logits, aux = apply_fn(batch)
         loss = lm_loss(logits, batch["labels"], aux)
+        if shards > 1:
+            loss = loss / shards
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         return loss.detach(), [torch.zeros_like(t) if g is None else g
                                for t, g in zip(tensors, grads)]
 
-    def grads_of(params: dict, batch: dict):
+    def grads_of(params: dict, batch: dict, shards: int):
         names = list(params)
         tensors = [params[n] for n in names]
         b = batch["tokens"].shape[0]
-        if tc.microbatch and tc.microbatch < b:
-            nb = b // tc.microbatch
+        micro = tc.microbatch // shards
+        if micro and micro < b:
+            nb = b // micro
             loss = torch.zeros((), dtype=torch.float32,
-                               device=tensors[0].device)
+                               device=batch["tokens"].device)
             acc = [torch.zeros_like(t) for t in tensors]
             for i in range(nb):
-                sl = slice(i * tc.microbatch, (i + 1) * tc.microbatch)
+                sl = slice(i * micro, (i + 1) * micro)
                 mb = {k: v[sl] for k, v in batch.items()}
-                l_i, g_i = loss_and_grads(tensors, mb)
+                l_i, g_i = loss_and_grads(tensors, mb, shards)
                 loss = loss + l_i / nb
                 acc = [a + g / nb for a, g in zip(acc, g_i)]
             grads = acc
         else:
-            loss, grads = loss_and_grads(tensors, batch)
+            loss, grads = loss_and_grads(tensors, batch, shards)
         return loss, dict(zip(names, grads))
 
-    def train_step(params, opt_state, batch, step):
-        loss, grads = grads_of(params, batch)
+    def train_step(params, opt_state, batch, step, shards: int = 1):
+        """``shards``: the ranks the batch rows are split over; each
+        rank's loss is its share of the batch mean."""
+        loss, grads = grads_of(params, batch, shards)
         lr = lr_fn(step).to(loss.device)
         params, opt_state, gnorm = opt_update(grads, opt_state, params, lr)
         return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
     return train_step, opt_init
+
+
+def shardings_for(mesh, state: dict, opt_state: dict, tc: TrainConfig,
+                  moe_ffn_shard_data: bool = False, cfg=None):
+    """(parameter specs, optimizer-state specs) on ``mesh``: the parameters
+    by ``param_pspecs``; each moment by its parameters' spec, ZeRO-1
+    upgraded when ``tc.zero1``, a factored ``v`` split into its row spec
+    (the last dim's entry dropped) and its column spec (the one before).
+
+    The moments are stacked over layers as the reference's (``cfg`` maps
+    the port's names onto its paths; without it the moments are keyed by
+    the state's own names).  The port updates a stacked moment layer by
+    layer, so its stack dim stays replicated and ZeRO-1 picks the first
+    divisible dim after it, where the reference's may pick the stack dim
+    itself: the same bytes on every rank, a different block.  A stacked
+    group of rank-1 members is updated stacked, so its specs are the
+    reference's."""
+    with use_mesh(mesh):
+        p_specs = param_pspecs(state, moe_ffn_shard_data)
+        groups = ref_groups(state, cfg) if cfg is not None else \
+            {n: [n] for n in state}
+
+        def opt_spec(spec, shape, lead: int):
+            if tc.zero1:
+                spec = P(*spec[:lead]) + zero1_upgrade(
+                    P(*spec[lead:]), shape[lead:], mesh)
+            return P(*spec)
+
+        def build(moments):
+            out = {}
+            for path, names in groups.items():
+                spec = tuple(p_specs[names[0]])
+                # a stacked group of rank-1 members updates stacked, one of
+                # matrices layer by layer (``optimizer.make_optimizer``)
+                on_stack = cfg is not None and stacked(path, cfg)
+                lead = 1 if on_stack and state[names[0]].ndim >= 2 else 0
+                spec = (None,) * on_stack + spec
+                leaf = moments[path]
+                if isinstance(leaf, dict):            # factored v
+                    rank = leaf["row"].ndim + 1
+                    parts = list(spec) + [None] * (rank - len(spec))
+                    out[path] = {
+                        "row": opt_spec(parts[:-1], leaf["row"].shape, lead),
+                        "col": opt_spec(parts[:-2] + parts[-1:],
+                                        leaf["col"].shape, lead)}
+                else:
+                    out[path] = opt_spec(spec, leaf.shape, lead)
+            return out
+
+        o_specs = {"step": P(), "m": build(opt_state["m"]),
+                   "v": build(opt_state["v"])}
+    return p_specs, o_specs
 
 
 @dataclasses.dataclass

@@ -19,6 +19,13 @@ group of rank-1 members is small and is stacked for its update.
 
 ``update`` works in place: the parameters and the state it returns are the
 tensors it was given.
+
+On a mesh (``init(params, mesh=..., specs=...)``, the specs of
+``train.loop.shardings_for``) the parameters, their gradients and the
+moments are DTensors.  A member's update runs in its moments' placement
+(ZeRO-1: this rank's share of the data axis) through DTensor's own
+operations, and the new value goes back to the parameter's placement; a
+stacked group of rank-1 members is small and updates whole.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from ..configs.base import TrainConfig
 from ..convert import ref_groups, stacked
+from ..dist.sharding import assign, whole
 
 
 def lr_schedule(tc: TrainConfig):
@@ -57,6 +65,29 @@ def _stacked_shape(path: str, members, cfg) -> tuple:
     return (len(members),) + shape if stacked(path, cfg) else shape
 
 
+def _is_dt(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _member(t, i):
+    """Member ``i`` of a stacked moment: a view (a DTensor over a view of
+    its local block on a mesh, the stack dim being replicated there)."""
+    if isinstance(t, dict):
+        return {k: _member(v, i) for k, v in t.items()}
+    if not _is_dt(t):
+        return t[i]
+    from torch.distributed.tensor import DTensor, Shard
+    if any(p.is_shard(0) for p in t.placements):
+        raise ValueError("a stacked moment's stack dim must be replicated")
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in t.placements]
+    shape = t.shape[1:]
+    return DTensor.from_local(t.to_local()[i], t.device_mesh, pl,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
 def make_optimizer(tc: TrainConfig, cfg):
     """(init(params) -> state, update(grads, state, params, lr) ->
     (params, state, gnorm)).  ``params`` and ``grads`` are dicts keyed by
@@ -65,18 +96,31 @@ def make_optimizer(tc: TrainConfig, cfg):
     tensor}, "v": {path: tensor or {"row", "col"}}}``."""
     mdt = _moment_dtype(tc)
 
-    def init(params: dict) -> dict:
+    def init(params: dict, mesh=None, specs=None) -> dict:
+        """Zeroed moments; on ``mesh`` each one a DTensor placed by its
+        spec in ``specs`` (the optimizer-state specs of
+        ``shardings_for``), allocating only this rank's block."""
+        from ..dist.sharding import zeros_placed
         m, v = {}, {}
+
+        def zeros(shape, device, spec):
+            if mesh is None:
+                return torch.zeros(shape, dtype=mdt, device=device)
+            return zeros_placed(shape, mdt, device, mesh, spec)
+
         for path, names in ref_groups(params, cfg).items():
             members = [params[n] for n in names]
             shape = _stacked_shape(path, members, cfg)
-            kw = dict(dtype=mdt, device=members[0].device)
-            m[path] = torch.zeros(shape, **kw)
+            dev = members[0].device
+            sm = specs["m"][path] if specs else None
+            sv = specs["v"][path] if specs else None
+            m[path] = zeros(shape, dev, sm)
             if tc.factored_second_moment and _factored(shape):
-                v[path] = {"row": torch.zeros(shape[:-1], **kw),
-                           "col": torch.zeros(shape[:-2] + shape[-1:], **kw)}
+                v[path] = {"row": zeros(shape[:-1], dev, sv and sv["row"]),
+                           "col": zeros(shape[:-2] + shape[-1:], dev,
+                                        sv and sv["col"])}
             else:
-                v[path] = torch.zeros(shape, **kw)
+                v[path] = zeros(shape, dev, sv)
         dev = next(iter(params.values())).device
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
                 "m": m, "v": v}
@@ -95,7 +139,7 @@ def make_optimizer(tc: TrainConfig, cfg):
         gsq = None
         for names in groups.values():
             for n in names:
-                s = torch.sum(torch.square(grads[n].float()))
+                s = whole(torch.sum(torch.square(grads[n].float())))
                 gsq = s if gsq is None else gsq + s
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -141,7 +185,10 @@ def make_optimizer(tc: TrainConfig, cfg):
                 members = [params[n] for n in names]
                 shape = _stacked_shape(path, members, cfg)
                 decay = len(shape) >= 2
-                if not stacked(path, cfg):
+                if _is_dt(m):
+                    _update_placed(upd, path, names, members, grads, m, v,
+                                   decay)
+                elif not stacked(path, cfg):
                     p_new, m_new, v_new = upd(members[0], grads[names[0]],
                                               m, v, decay)
                     members[0].copy_(p_new)
@@ -172,5 +219,34 @@ def make_optimizer(tc: TrainConfig, cfg):
                     store(v, v_new)
         state["step"] = step
         return params, state, gnorm
+
+    def _update_placed(upd, path, names, members, grads, m, v, decay):
+        """The mesh branch of ``update`` (see the module docstring)."""
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        if stacked(path, cfg) and members[0].ndim < 2:
+            p_new, m_new, v_new = upd(
+                torch.stack([whole(p) for p in members]),
+                torch.stack([whole(grads[n]) for n in names]),
+                whole(m), {k: whole(x) for k, x in v.items()}
+                if isinstance(v, dict) else whole(v), decay)
+            for i, p in enumerate(members):
+                assign(p, p_new[i])
+            assign(m, m_new)
+            assign(v, v_new)
+            return
+        for i, (p, n) in enumerate(zip(members, names)):
+            j = i if stacked(path, cfg) else None
+            mi = m if j is None else _member(m, j)
+            vi = v if j is None else _member(v, j)
+            pl = mi.placements
+            with implicit_replication():
+                p_new, m_new, v_new = upd(
+                    p.redistribute(p.device_mesh, pl),
+                    grads[n].redistribute(p.device_mesh, pl), mi, vi,
+                    decay)
+            assign(mi, m_new)
+            assign(vi, v_new)
+            assign(p, p_new)
 
     return init, update

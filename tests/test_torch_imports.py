@@ -61,7 +61,9 @@ def test_the_walk_sees_the_port():
                 "configs/deepseek_7b.py", "configs/glm4_9b.py",
                 "configs/deepseek_67b.py", "configs/internvl2_76b.py",
                 "train/loop.py", "train/optimizer.py", "ckpt/checkpoint.py",
-                "launch/train.py", "launch/steps.py"):
+                "launch/train.py", "launch/steps.py", "launch/mesh.py",
+                "launch/dryrun.py", "dist/__init__.py", "dist/sharding.py",
+                "dist/group.py", "telemetry/roofline.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES
 
 
@@ -108,3 +110,19 @@ def test_score_binding_matches_its_prototype():
                        "trq_score_launch")
     assert callable(kernel._score_lib)
     assert list(kernel._SCORE_ARGTYPES) == _ctypes_of(params)
+
+
+def test_the_last_public_names():
+    """``trq_quant_with_ops``, ``quant_mse``, ``ideal_params``, the ambient
+    QuantState, ``lm_batch`` and ``list_archs`` where the reference's
+    packages export them (their values are held against the reference in
+    ``test_torch_trq_quant.py``)."""
+    import repro_torch.core as core
+    import repro_torch.data as data
+    import repro_torch.models as models
+    import repro_torch.pim as pim
+    assert {"trq_quant_with_ops", "quant_mse", "ideal_params",
+            "use_quant_state", "active_quant_state"} <= set(dir(core))
+    assert {"use_quant_state", "active_quant_state"} <= set(dir(pim))
+    assert "lm_batch" in dir(data)
+    assert "list_archs" in dir(models)

@@ -11,6 +11,13 @@ The scoring entry (``trq_score``) is held to the elementwise route: its op
 sums exactly, its squared-error sums bitwise against an f64 sum of the
 elementwise f32 errors, and on integer samples with integral steps against
 numpy's exact int64 sums.
+
+``core.trq``'s ``trq_quant_with_ops``, ``quant_mse`` and ``ideal_params``
+and ``data.synthetic.lm_batch`` are held to the reference's on the same
+inputs: values and op counts exactly, the mean square at rtol 1e-6 (the
+two means sum in another order), and ``lm_batch``, whose reference draws
+from ``jax.random`` (numpy cannot replay it), on its layout, its bigram
+map exactly and its two draws' shares within 0.05.
 """
 import numpy as np
 import pytest
@@ -18,7 +25,11 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import trq as jtrq  # noqa: E402
 from repro.core.trq import make_params as jmake  # noqa: E402
+from repro.data import synthetic as jsyn  # noqa: E402
+from repro_torch.core import trq as ttrq  # noqa: E402
+from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro.kernels import trq_quant_pallas  # noqa: E402
 from repro_torch.core.trq import make_params as tmake  # noqa: E402
 from repro_torch.core.trq import trq_ad_ops, trq_quant  # noqa: E402
@@ -92,8 +103,14 @@ def test_k2_takes_bf16_and_rejects_other_devices(rng):
     q_b, _ = k2(x.bfloat16(), p)
     q_f, _ = k2(x.bfloat16().float(), p)
     assert torch.equal(q_b, q_f)
-    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
-        k2(torch.empty(4, device="meta"), p)
+    # a meta tensor (no data: the dry run's shapes) takes the plain
+    # version by an explicit device check; any other device has no kernel
+    q_m, ops_m = k2(torch.empty(4, device="meta"), p)
+    assert q_m.device.type == ops_m.device.type == "meta"
+    from types import SimpleNamespace
+    from repro_torch.kernels.build import route
+    with pytest.raises(ValueError, match="no kernel for tensors on xpu"):
+        route(SimpleNamespace(device=torch.device("xpu")))
 
 
 # ---------------------------------------------------------------------------
@@ -170,3 +187,74 @@ def test_score_slice_matches_the_source():
     val = {k: int(v) for k, v in re.findall(
         r"constexpr int (kScore\w+) = (\d+);", src)}
     assert k2_kernel.SCORE_SLICE == val["kScoreThreads"] * val["kScorePer"]
+
+
+# ---------------------------------------------------------------------------
+# the core's fused pair, the Eq. 10 error, the Eq. 11 registers, lm_batch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", MODES, ids=["signed", "unsigned",
+                                             "uniform-signed", "uniform"])
+@pytest.mark.parametrize("pk", PARAM_GRID, ids=["4-4", "2-6", "3-5-b3",
+                                                "7-7"])
+def test_trq_quant_with_ops_and_quant_mse_match_reference(rng, pk, mode):
+    x = rng.normal(0, 30, (37, 41)).astype(np.float32)
+    if not mode["signed"]:
+        x = (np.abs(x) * np.where(rng.random(x.shape) < 0.1, -1, 1)
+             ).astype(np.float32)
+    delta = 1.0 if pk["bias"] == 0.0 else 0.7
+    jp, tp = jmake(delta_r1=delta, **pk, **mode), \
+        tmake(delta_r1=delta, **pk, **mode)
+    q_j, ops_j = jtrq.trq_quant_with_ops(jnp.asarray(x), jp)
+    q_t, ops_t = ttrq.trq_quant_with_ops(torch.from_numpy(x), tp)
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(ops_t.numpy(), np.asarray(ops_j))
+    assert ops_t.dtype == torch.int32
+    e_j = float(jtrq.quant_mse(jnp.asarray(x), jp))
+    e_t = ttrq.quant_mse(torch.from_numpy(x), tp)
+    assert e_t.dtype == torch.float32 and e_t.ndim == 0
+    np.testing.assert_allclose(float(e_t), e_j, rtol=1e-6)
+
+
+@pytest.mark.parametrize("r_ideal", [1, 3, 7, 8, 12])
+@pytest.mark.parametrize("n", [(2, 4), (4, 4), (3, 6), (7, 7)], ids=str)
+def test_ideal_params_match_reference(rng, r_ideal, n):
+    jp = jtrq.ideal_params(r_ideal=r_ideal, n_r1=n[0], n_r2=n[1])
+    tp = ttrq.ideal_params(r_ideal=r_ideal, n_r1=n[0], n_r2=n[1])
+    for f in ("n_r1", "n_r2", "m", "nu", "mode", "signed"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    for f in ("delta_r1", "bias", "theta", "delta_r2"):
+        assert float(getattr(tp, f)) == float(getattr(jp, f)), f
+    # the lossless range of Eq. 11 quantizes the same, to the same error
+    x = np.round(rng.uniform(0, 2.0 ** r_ideal - 1, 257)).astype(np.float32)
+    np.testing.assert_array_equal(
+        ttrq.trq_quant(torch.from_numpy(x), tp).numpy(),
+        np.asarray(jtrq.trq_quant(jnp.asarray(x), jp)))
+    np.testing.assert_allclose(float(ttrq.quant_mse(torch.from_numpy(x), tp)),
+                               float(jtrq.quant_mse(jnp.asarray(x), jp)),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("step", [0, 3])
+def test_lm_batch_matches_reference_stream(step):
+    vocab, seq, batch, seed = 512, 64, 32, 1
+    b_j = jsyn.lm_batch(vocab, seq, batch, step=step, seed=seed)
+    b_t = tsyn.lm_batch(vocab, seq, batch, step=step, seed=seed,
+                        device="cpu")
+    assert torch.equal(b_t["tokens"], tsyn.TokenStream(
+        vocab, seq, batch, seed).batch_at(step, device="cpu")["tokens"])
+    bmap = tsyn.TokenStream(vocab, seq, batch, seed)._bigram_map()
+    np.testing.assert_array_equal(
+        bmap, jsyn.TokenStream(vocab, seq, batch, seed)._bigram_map())
+    shares = []
+    for b, tok, lab in ((b_j, np.asarray(b_j["tokens"]),
+                         np.asarray(b_j["labels"])),
+                        (b_t, b_t["tokens"].numpy(), b_t["labels"].numpy())):
+        assert set(b) == {"tokens", "labels"}
+        assert tok.shape == lab.shape == (batch, seq)
+        assert tok.dtype == lab.dtype == np.int32
+        assert 0 <= tok.min() and tok.max() < vocab
+        np.testing.assert_array_equal(tok[:, 1:], lab[:, :-1])
+        # the bigram share, and the Zipf-like unigram draw's head
+        shares.append((np.mean(lab == bmap[tok]), np.mean(tok < 16)))
+    np.testing.assert_allclose(shares[0], shares[1], atol=0.05)
