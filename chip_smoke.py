@@ -48,7 +48,17 @@ which fails the run on any error:
            launches, each after an L2 flush, replayed as one CUDA graph,
            less the flushes), the time of one call as a caller sees it,
            host work included, and ``torch.matmul`` on the same bf16
-           operands as a yardstick (another function: no quantizer);
+           operands as a yardstick (another function: no quantizer).
+           Then K1's split launch (``trq_group_mvm_psums``: memset and
+           pass 1, the 32 maximum cells returned; the cells max-reduced
+           over the blocks as ranks would; ``trq_group_mvm_quantize``:
+           pass 2 on them) at llama's seven projections, M = 64 and 256,
+           the rows in 2 and 4 blocks: ``y`` and ops bitwise one
+           auto-ranged call on all the rows, each block fitted alone
+           differing from it; pass 1 against its plain version at the
+           float bar, its cells its partial sums' exact maximum, pass 2
+           bitwise its plain version; each entry's device time a block at
+           ``K1_SPLIT_TIMED`` beside its bound and its plain version;
 3. serve   full-width llama3.2-3b (28 layers, bf16, seeded random weights)
            on the prepared ``pallas`` datapath through ``runtime.compile``
            and the paged ``ServeEngine``: 8 requests sharing a 48-token
@@ -304,11 +314,11 @@ which fails the run on any error:
            d_ff 11,008, vocab 102,400, an untied ``lm_head``) cut to 15 of
            30 layers and glm4-9b (32 query and 2 KV heads, d_ff 13,696,
            vocab 151,552, untied) to 20 of 40; deepseek-67b (d=8,192, 64/8
-           heads, d_ff 22,016, vocab 102,400) cut to 14 of 95 layers and
+           heads, d_ff 22,016, vocab 102,400) cut to 7 of 95 layers and
            internvl2-76b (d=8,192, 64/8 heads, d_ff 28,672, vocab 128,256,
-           the patch frontend) cut to 11 of 80 (``DENSE_ARCHS``: half the
-           depth that fits the card, so that the script with phases 18
-           and 19 keeps its time limit; 28 and 22 fit the bf16 weights,
+           the patch frontend) cut to 6 of 80 (``DENSE_ARCHS``: a quarter
+           of the depth that fits the card, so that the script with phases
+           18 and 19 keeps its time limit; 28 and 22 fit the bf16 weights,
            the ``bit_exact`` masks and the plain-K3 check's column
            blocks).  Each runs phase 3's
            trace on ``pallas``, then on ``bit_exact``, through the paged
@@ -405,10 +415,21 @@ which fails the run on any error:
            two mesh-less steps from the same seed: loss, A/D ops and
            every parameter equal, bitwise.  Prints the mesh, the
            placements of ``layers.0.attn.wq.w`` and of one Adam moment,
-           and the phase's seconds.
+           and the phase's seconds.  Then the context-parallel layout:
+           llama3.2-3b cut to ``CP_LAYERS`` serves phase 3's trace
+           mesh-less, then on two ranks that share the card as threads of
+           this process (torch's threaded process group) on a (1, 2)
+           mesh, every prefill split over 'model': a 64-token prefill's
+           logits, cache and A/D ops bitwise the mesh-less ones, the
+           trace's tokens and per-request A/D ops too, K1's split
+           entries launched 7 x layers x 2 a prefill of the trace and
+           its plain versions never; then a split prefill of
+           deepseek-7b and internvl2-76b (with its 256 patch rows) at 2
+           layers each, bitwise their mesh-less ones.
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
-12, 13, 14, 16, 17, 18 and 19 for K1, phases 7, 11, 12, 13, 14 and 16 for K3, the
+12, 13, 14, 16, 17, 18 and 19 for K1, phase 19's two ranks for K1's split
+entries, phases 7, 11, 12, 13, 14 and 16 for K3, the
 calibration of phase 8 for both of K2's entries, phase 15 for all three)
 and read just after; launches that compare a kernel with its plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -536,10 +557,11 @@ JAMBA_SCAN_LEN = 1024              # phase 14: four 256-token chunks
 # for the script's time limit.  The two d = 8,192 models are cut to half
 # the depth where the card's 80 GB still hold the bf16 weights, the
 # bit_exact masks (1 byte a planned weight) and the plain-K3 check's column
-# blocks (28 and 22 layers); deepseek-7b and glm4-9b, which fit whole, to
+# blocks (28 and 22 layers), then to a quarter (7, 6) once phase 19's
+# two ranks were added; deepseek-7b and glm4-9b, which fit whole, to
 # half theirs (15 of 30, 20 of 40) once phase 19 was added
 DENSE_ARCHS = (("deepseek-7b", 15), ("glm4-9b", 20),
-               ("deepseek-67b", 14), ("internvl2-76b", 11))
+               ("deepseek-67b", 7), ("internvl2-76b", 6))
 # (K, N) that phase 16 brings to K1 and K3: glm4's wk/wv and MLP,
 # deepseek-7b's MLP, at d = 8,192 wq/wo (and internvl2's patch_proj),
 # wk/wv and deepseek-67b's and internvl2's MLPs (wq/wk/wv/wo at d = 4,096
@@ -899,6 +921,168 @@ def k1_phase(torch, rec: dict, device: str = "cuda") -> None:
                      f"on the bf16 operands {mm_ms:.4f} ms); one cold "
                      f"call's passes {passes}")
         log(line)
+
+
+# K1's split launch (phase 2): llama's seven projections at a 64-token
+# prefill and at 256 rows, the rows in 2 and 4 blocks (a block of 16 rows
+# takes the TMA body, the whole call the plain-load one)
+K1_SPLIT_PROJ = (("wq", 3072, 3072), ("wk", 3072, 1024), ("wv", 3072, 1024),
+                 ("wo", 3072, 3072), ("w_gate", 3072, 8192),
+                 ("w_up", 3072, 8192), ("w_down", 8192, 3072))
+K1_SPLIT_MS = (64, 256)
+K1_SPLIT_BLOCKS = (2, 4)
+K1_SPLIT_TIMED = (64, 3072, 8192)  # w_gate at the 64-token prefill
+
+
+def split_bound(m: int, k: int, n: int, entry: str):
+    """Least time of one split-launch entry on an ``m``-row block: pass 1
+    reads a (f32) and w (bf16) once and writes the (M, G, N) f32 partial
+    sums, or does its 2MKN f32 multiply-adds, whichever is longer; pass 2
+    reads the partial sums and writes y (bytes)."""
+    g = -(-k // 128)
+    if entry == "trq_group_mvm_psums":
+        t_bytes = (4 * m * k + 2 * k * n + 4 * m * g * n + 8 * 17) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * k * n / F32_FLOP_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+    return (4 * m * g * n + 4 * m * n + 12 + 8 * 17) / HBM_BYTES_PER_S \
+        * 1e3, "bytes"
+
+
+def k1_split_launch(torch, k1, a, w, scalars, blocks: int, regs: dict):
+    """The split launch as ``blocks`` ranks run it, one after another on
+    this card: pass 1 on each block of rows, the cells' maximum over the
+    blocks (the ranks' int32 MAX all-reduce), pass 2 on each block.
+    Returns (y, ops, each block's own cells)."""
+    parts = [k1.trq_group_mvm_psums_cuda(x.contiguous(), w)
+             for x in a.chunk(blocks)]
+    cells = torch.stack([st[1:].view(torch.int32) for _, st in parts])
+    top = torch.amax(cells, 0)
+    ys, ops = [], 0
+    for part, st in parts:
+        st[1:].view(torch.int32).copy_(top)
+        y, o = k1.trq_group_mvm_quantize_cuda(part, st, scalars, a.shape[1],
+                                              **regs)
+        ys.append(y)
+        ops = ops + o
+    return torch.cat(ys), ops, cells
+
+
+def k1_split_phase(torch, rec: dict, device: str = "cuda") -> None:
+    """K1's split launch (pass 1, the cells max-reduced, pass 2) against
+    one auto-ranged K1 call on all the rows: ``y`` and the op count
+    bitwise at every shape and block count; each entry against its plain
+    version (pass 1's partial sums within the float bar and its cells
+    their exact maximum, pass 2 bitwise on the same partial sums); the
+    entries' device times at ``K1_SPLIT_TIMED``, into ``rec['entries']``."""
+    from repro_torch.core.trq import make_params
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.kernels.trq_group_mvm import pack_scalars
+    from repro_torch.kernels.trq_group_mvm import ref as k1ref
+    from repro_torch.pim.backend import _dynamic_scales, grid_scale
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    flush = torch.empty(2 * L2_BYTES // 4, device=dev)
+    p = make_params(signed=True, device=dev, n_r1=6, n_r2=6, m=4)
+    regs = dict(n_r1=p.n_r1, n_r2=p.n_r2, m=p.m, nu=p.nu, mode=p.mode)
+    entries = {name: dict(name=name, route="cuda", source=rec["source"],
+                          replaces=rec["replaces"], launches=0,
+                          max_abs_err=0.0)
+               for name in ("trq_group_mvm_psums", "trq_group_mvm_quantize")}
+    local_differs = 0
+    n_cases = 0
+    for name, k, n in K1_SPLIT_PROJ:
+        w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+             ).to(torch.bfloat16)
+        for m in K1_SPLIT_MS:
+            a = torch.randn(m, k, generator=gen, device=dev)
+            a[-1] *= 4.0                      # the last block's maximum
+            a_s, w_s = _dynamic_scales(a, w.float(), None, None)
+            scalars = pack_scalars(p, grid_scale(a_s, w_s, 1.0, dev), dev)
+            y1, o1 = k1.trq_group_mvm_cuda(a, w, scalars, auto_range=True,
+                                           **regs)
+            for blocks in K1_SPLIT_BLOCKS:
+                y, ops, cells = k1_split_launch(torch, k1, a, w, scalars,
+                                                blocks, regs)
+                torch.cuda.synchronize()
+                if not torch.equal(y, y1) or int(ops) != int(o1):
+                    raise AssertionError(
+                        f"K1's split launch of {name} {m}x{k}x{n} in "
+                        f"{blocks} blocks differs from one call: max err "
+                        f"{float((y - y1).abs().max())}, ops {int(ops)} "
+                        f"vs {int(o1)}")
+                own = torch.cat([k1.trq_group_mvm_cuda(
+                    x.contiguous(), w, scalars, auto_range=True, **regs)[0]
+                    for x in a.chunk(blocks)])
+                local_differs += not torch.equal(own, y1)
+                n_cases += 1
+                # each entry against its plain version on one block
+                x = a.chunk(blocks)[0].contiguous()
+                part, st = k1.trq_group_mvm_psums_cuda(x, w)
+                part_r, st_r = k1ref.trq_group_mvm_psums_ref(x, w)
+                top = torch.amax(st[1:].view(torch.int32)).view(torch.float32)
+                if float(top) != float(torch.amax(torch.abs(part))):
+                    raise AssertionError(f"pass 1's cells of {name} are not "
+                                         f"its partial sums' maximum")
+                err1 = (part - part_r).abs()
+                if not bool((err1 <= FLOAT_TOL + FLOAT_TOL
+                             * part_r.abs()).all()):
+                    raise AssertionError(f"pass 1 of {name} outside the "
+                                         f"float bar: {float(err1.max())}")
+                y2, o2 = k1.trq_group_mvm_quantize_cuda(
+                    part, st.clone(), scalars, k, **regs)
+                y2r, o2r = k1ref.trq_group_mvm_quantize_ref(
+                    part, st.clone(), scalars, k, **regs)
+                if not torch.equal(y2, y2r) or int(o2) != int(o2r):
+                    raise AssertionError(f"pass 2 of {name} differs from "
+                                         f"its plain version")
+                for key, err in (("trq_group_mvm_psums", float(err1.max())),
+                                 ("trq_group_mvm_quantize", 0.0)):
+                    entries[key]["max_abs_err"] = max(
+                        entries[key]["max_abs_err"], err)
+                if (m, k, n) != K1_SPLIT_TIMED:
+                    continue
+                rows = m // blocks
+                pass1 = lambda: k1.trq_group_mvm_psums_cuda(x, w)  # noqa
+                pass2 = lambda: k1.trq_group_mvm_quantize_cuda(  # noqa
+                    part, st, scalars, k, **regs)
+                t = {"trq_group_mvm_psums": (
+                    device_ms(torch, pass1, 20, flush),
+                    device_ms(torch, lambda: k1ref.trq_group_mvm_psums_ref(
+                        x, w), 5, flush)),
+                     "trq_group_mvm_quantize": (
+                    device_ms(torch, pass2, 20, flush),
+                    device_ms(torch, lambda: k1ref.trq_group_mvm_quantize_ref(
+                        part, st, scalars, k, **regs), 5, flush))}
+                one = device_ms(torch, lambda: k1.trq_group_mvm_cuda(
+                    a, w, scalars, auto_range=True, **regs), 20, flush)
+                for key, (ms, plain) in t.items():
+                    b, by = split_bound(rows, k, n, key)
+                    if blocks == 2:
+                        entries[key].update(shape=[rows, k, n], ms=ms,
+                                            plain_ms=plain, bound_ms=b,
+                                            bound_by=by, library_ms=None)
+                    entries[key].setdefault("timed", []).append(
+                        dict(rows=rows, ms=ms, plain_ms=plain, bound_ms=b,
+                             bound_by=by))
+                log(f"  split {name} {m}x{k}x{n} in {blocks} blocks of "
+                    f"{rows} rows: pass 1 {t['trq_group_mvm_psums'][0]:.4f} "
+                    f"ms (plain {t['trq_group_mvm_psums'][1]:.4f}), pass 2 "
+                    f"{t['trq_group_mvm_quantize'][0]:.4f} ms (plain "
+                    f"{t['trq_group_mvm_quantize'][1]:.4f}) a block on the "
+                    f"device; one call on all {m} rows {one:.4f} ms")
+    if local_differs == 0:
+        raise AssertionError("no case's blocks fitted alone differ from one "
+                             "call: the check cannot see a rank-local fit")
+    rec["entries"] = entries
+    log(f"  K1's split launch: {n_cases} cases (llama's seven projections, "
+        f"M in {K1_SPLIT_MS}, {K1_SPLIT_BLOCKS} blocks): y and ops bitwise "
+        f"one call's; {local_differs} of them differ when each block fits "
+        f"alone; pass 2 bitwise its plain version, pass 1 within "
+        f"{entries['trq_group_mvm_psums']['max_abs_err']:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -4331,6 +4515,258 @@ def mesh_phase(torch, rec: dict, cfg, trace: dict,
     return out
 
 
+CP_RANKS = 2                       # phase 19: ranks sharing the card
+CP_LAYERS = 14                     # phase 19: the two ranks' depth (of 28)
+CP_RUN_S = 600                     # phase 19: the two ranks' time limit
+# phase 19: the two ranks' split prefill at the other dense widths, cut to
+# (arch, layers): d = 4096 in 32-row blocks, d = 8192 with internvl2's 256
+# patch rows before the tokens (160-row blocks)
+CP_WIDE = (("deepseek-7b", 2), ("internvl2-76b", 2))
+
+
+@contextlib.contextmanager
+def plain_k1_calls():
+    """Count every call of K1's plain versions through its wrapper's
+    module (the one-call version and the split launch's two passes): on
+    the card's main paths the count must stay 0."""
+    from repro_torch.kernels.trq_group_mvm import ops as k1ops
+    names = ("trq_group_mvm_ref", "trq_group_mvm_psums_ref",
+             "trq_group_mvm_quantize_ref")
+    saved = {n: getattr(k1ops, n) for n in names}
+    count = {"calls": 0}
+
+    def counted(fn):
+        def call(*a, **k):
+            count["calls"] += 1
+            return fn(*a, **k)
+        return call
+    for n, fn in saved.items():
+        setattr(k1ops, n, counted(fn))
+    try:
+        yield count
+    finally:
+        for n, fn in saved.items():
+            setattr(k1ops, n, fn)
+
+
+def cp_prefill(torch, rt, cfg, device: str = "cuda") -> dict:
+    """One 64-token prefill of the trace's first prompt (the bucket its
+    engine prefill takes), after seeded N(0, 1) patch rows where the
+    model has a frontend: the last logits, the whole cache and the
+    rows."""
+    import numpy as np
+    toks = np.asarray(trace_prompts(cfg)[0], np.int32)[None]
+    f = cfg.frontend_len if cfg.frontend == "patch" else 0
+    extra = None
+    if f:
+        gen = torch.Generator(device=device).manual_seed(19)
+        extra = {"embeds": torch.randn(1, f, cfg.d_model, generator=gen,
+                                       device=device)}
+    max_len = 256 if not f else 16 * -(-(f + 64 + 16) // 16)
+    (last, cache), rep = rt.prefill(toks, extra, max_len=max_len)
+    return {"logits": last, "k": cache["k"], "v": cache["v"],
+            "ops": int(rep.ad_ops), "rows": f + toks.shape[1]}
+
+
+def cp_wide_refs(torch, device: str) -> dict:
+    """The mesh-less :func:`cp_prefill` of each ``CP_WIDE`` config."""
+    from repro_torch import runtime
+    from repro_torch.models.registry import init
+    refs = {}
+    for arch, layers in CP_WIDE:
+        wcfg = dense_config(arch, layers)
+        rt = runtime.compile(wcfg, init(wcfg, seed=0, device=device),
+                             device=device)
+        refs[arch] = cp_prefill(torch, rt, wcfg, device)
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def cp_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
+    """Phase 19, the context-parallel layout: two ranks share the card as
+    two threads of this process (torch's threaded process group; NCCL
+    takes one rank a device) on a (1, 2) mesh.  ``cfg`` (llama3.2-3b on
+    ``pallas``) is cut to ``CP_LAYERS`` layers, and a mesh-less Runtime
+    of it gives the reference: a 64-token prefill and phase 3's trace.
+    Each rank compiles the same with ``mesh=``: its prefill splits the
+    rows over 'model' (K1 fits each projection's register through its
+    split launch, attention gathers k and v) and must return the
+    reference's logits, cache and A/D ops bitwise.  Then each serves the
+    trace (every prefill split; a decode step, one row, whole on both),
+    launches counted from 0 just before it and K1's plain versions not
+    called: its tokens and per-request A/D ops must be the reference's,
+    bitwise.  Last, each rank prefills the ``CP_WIDE`` configs (the other
+    dense widths; internvl2's patch rows split with the tokens) split,
+    bitwise their mesh-less prefills.  Returns the readings and the
+    seconds."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
+
+    from repro_torch import runtime
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.models.registry import init
+    t0 = time.perf_counter()
+    cfg = cfg.replace(n_layers=CP_LAYERS)
+    rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
+                         device=device)
+    warm(rt)
+    ref = cp_prefill(torch, rt, cfg)
+    trace = run_trace(torch, rt, cfg, k1, "K1")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_ref = cp_wide_refs(torch, device)
+    out: list = [None] * CP_RANKS
+    errors: list = []
+    gate = threading.Barrier(CP_RANKS, timeout=CP_RUN_S)
+    counts: dict = {}
+    store = dist.HashStore()
+
+    def rank_main(r: int) -> None:
+        # the group ends with the threaded world (reset and uninstalled
+        # below): some torch releases' destroy_process_group reads state
+        # that world lacks
+        try:
+            dist.init_process_group("threaded", rank=r,
+                                    world_size=CP_RANKS, store=store)
+            mesh = DeviceMesh(device, torch.arange(CP_RANKS).reshape(
+                1, CP_RANKS), mesh_dim_names=("data", "model"))
+            rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
+                                 device=device, mesh=mesh)
+            warm(rt)
+            from repro_torch.serve import ServeEngine
+            engine = ServeEngine(rt, max_batch=TRACE_BATCH, max_len=256,
+                                 block_size=16)
+            pre = cp_prefill(torch, rt, cfg, device)
+            gate.wait()
+            if r == 0:
+                k1.LAUNCHES = k1.PSUMS_LAUNCHES = k1.QUANTIZE_LAUNCHES = 0
+            gate.wait()
+            calls0, t1 = rt.forward_calls, time.perf_counter()
+            for prompt in trace_prompts(cfg):
+                engine.submit(prompt, max_new_tokens=16)
+            done = sorted(engine.run(), key=lambda q: q.uid)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            gate.wait()
+            if r == 0:
+                counts.update(one_call=k1.LAUNCHES, psums=k1.PSUMS_LAUNCHES,
+                              quantize=k1.QUANTIZE_LAUNCHES)
+            res = dict(prefill=pre, tokens=[list(q.generated) for q in done],
+                       request_ops=[q.ad_ops for q in done],
+                       reused=[q.reused_tokens for q in done],
+                       forwards=rt.forward_calls - calls0, wall_s=wall,
+                       wide={})
+            del engine, rt
+            gc.collect()
+            torch.cuda.empty_cache()
+            for arch, layers in CP_WIDE:
+                wcfg = dense_config(arch, layers)
+                wrt = runtime.compile(wcfg, init(wcfg, seed=0, device=device),
+                                      device=device, mesh=mesh)
+                res["wide"][arch] = cp_prefill(torch, wrt, wcfg, device)
+                del wrt
+                gc.collect()
+                torch.cuda.empty_cache()
+            out[r] = res
+        except BaseException as e:             # the other rank must stop
+            errors.append(f"rank {r}: {traceback.format_exc()}")
+            gate.abort()
+            ProcessLocalGroup.exception_handle(e)
+
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _install_threaded_pg()
+    try:
+        with plain_k1_calls() as plain:
+            threads = [threading.Thread(target=rank_main, args=(r,),
+                                        daemon=True)
+                       for r in range(CP_RANKS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(CP_RUN_S)
+    finally:
+        ProcessLocalGroup.reset()
+        _uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError(f"the two ranks did not finish in {CP_RUN_S} s")
+    if errors:
+        raise AssertionError("a rank failed:\n" + "\n".join(errors))
+    if plain["calls"]:
+        raise AssertionError(f"K1's plain version ran {plain['calls']} times "
+                             f"on the card's main path")
+    for r in range(CP_RANKS):
+        got = out[r]["prefill"]
+        diff = [key for key in ("logits", "k", "v")
+                if not torch.equal(got[key], ref[key])]
+        if diff or got["ops"] != ref["ops"]:
+            raise AssertionError(f"rank {r}'s split prefill differs from the "
+                                 f"mesh-less one in {diff}, ops {got['ops']} "
+                                 f"vs {ref['ops']}")
+        for arch, want in wide_ref.items():
+            got = out[r]["wide"][arch]
+            diff = [key for key in ("logits", "k", "v")
+                    if not torch.equal(got[key], want[key])]
+            if diff or got["ops"] != want["ops"]:
+                raise AssertionError(f"rank {r}'s split prefill of {arch} "
+                                     f"differs from the mesh-less one in "
+                                     f"{diff}, ops {got['ops']} vs "
+                                     f"{want['ops']}")
+        if out[r]["tokens"] != out[0]["tokens"] or \
+                out[r]["request_ops"] != out[0]["request_ops"]:
+            raise AssertionError("the two ranks returned different results")
+    res = out[0]
+    prefills = len(res["tokens"])               # the trace's own
+    decodes = res["forwards"] - len(res["tokens"])
+    per = PROJ_PER_LAYER * cfg.n_layers * CP_RANKS
+    want = dict(one_call=per * decodes, psums=per * prefills,
+                quantize=per * prefills)
+    if counts != want or sorted(res["reused"]) != [0] + [48] * 7:
+        raise AssertionError(f"launches {counts} for {prefills} split "
+                             f"prefills and {decodes} decode steps on "
+                             f"{CP_RANKS} ranks; expected {want}; reuse "
+                             f"{res['reused']}")
+    if res["request_ops"] != trace["request_ops"] or \
+            res["tokens"] != trace["tokens"]:
+        first = next(((i, j) for i, (ta, tb) in enumerate(zip(
+            res["tokens"], trace["tokens"])) for j, (a, b) in enumerate(
+            zip(ta, tb)) if a != b), None)
+        raise AssertionError(f"the split trace left the mesh-less one: "
+                             f"first token off at (request, token) {first}; "
+                             f"per-request A/D ops {res['request_ops']} vs "
+                             f"{trace['request_ops']}")
+    rec["launches_by_path"][f"{cfg.name} at {CP_LAYERS} layers on two "
+                            f"ranks, sequence split"] = counts["one_call"]
+    for key in ("psums", "quantize"):
+        rec["entries"][f"trq_group_mvm_{key}"]["launches"] += counts[key]
+    log(f"  two threaded ranks on (1, {CP_RANKS}), {CP_LAYERS} layers: the "
+        f"split 64-token prefill's logits, cache and A/D ops equal the "
+        f"mesh-less ones; the trace ({prefills} split prefills, "
+        f"{decodes} decode steps) gave the mesh-less tokens and "
+        f"per-request A/D ops, bitwise; launches {counts} (K1's plain "
+        f"version 0 times); the trace in {res['wall_s']:.2f} s against "
+        f"{trace['wall_s']:.2f} s mesh-less")
+    for arch, layers in CP_WIDE:
+        log(f"  {arch} at {layers} layers (d_model "
+            f"{dense_config(arch, layers).d_model}): the split prefill of "
+            f"{wide_ref[arch]['rows']} rows gave the mesh-less logits, cache "
+            f"and A/D ops ({wide_ref[arch]['ops']}) on both ranks, bitwise")
+    return dict(mesh=[1, CP_RANKS], layers=CP_LAYERS, launches=counts,
+                wide={arch: dict(layers=layers, rows=wide_ref[arch]["rows"],
+                                 bitwise=True) for arch, layers in CP_WIDE},
+                bitwise=True, tokens=sum(map(len, trace["tokens"])),
+                wall_s=res["wall_s"], mesh_less_wall_s=trace["wall_s"],
+                phase_s=time.perf_counter() - t0)
+
+
 def pallas_config():
     from repro_torch.models.registry import get_config
     cfg = get_config(ARCH).replace(param_dtype="bfloat16",
@@ -4405,6 +4841,7 @@ def main(argv) -> int:
                 shapes=[])
     header("phase 2: trq_group_mvm against its plain version")
     k1_phase(torch, rec)
+    k1_split_phase(torch, rec)
     header("phase 3: serve full-width llama3.2-3b on pallas")
     cfg = pallas_config()
     serve = serve_phase(torch, rec, cfg)
@@ -4504,6 +4941,9 @@ def main(argv) -> int:
            f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
            f"allocated)")
     mesh = mesh_phase(torch, rec, cfg, serve["trace"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh["seq_split"] = cp_phase(torch, rec, cfg)
     for r in (rec, rec3):
         r["launches"] = sum(r["launches_by_path"].values())
 

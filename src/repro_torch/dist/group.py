@@ -1,4 +1,4 @@
-"""Process groups and the batch split of a meshed run.
+"""Process groups and the row split of a meshed run.
 
 :func:`init_local` brings up the default process group from a store on
 this host (a ``FileStore`` for several processes, a ``HashStore`` for one,
@@ -6,14 +6,20 @@ the testing ``fake`` store for a simulated world), never a TCP rendezvous
 that could wait on a network.
 
 A meshed ``Runtime`` runs one program on every rank: each entry point gets
-the whole batch, the ranks of the data axes (``('pod', 'data')``) each run
-their share of its rows (:func:`batch_share`) and the model axis runs the
-same rows on every rank.  While a forward holds its share
-(:func:`split_batch`), every quantity the single-device run takes over the
-whole batch is reduced over the data axes: the dynamic max-abs scales and
+the whole batch, and each rank runs its block of the rows.  The data axes
+(``('pod', 'data')``) split the batch (:func:`batch_share`); under the
+reference's context-parallel layout (``parallelism="fsdp_cp"``) the model
+axis splits the sequence (:func:`seq_share`), and attention gathers the
+keys and values whole (:func:`gather_seq`).  A length that does not
+divide runs whole on every rank of the axis, as the reference replicates
+an indivisible dim.  While a forward holds its block
+(:func:`split_rows`), every quantity the single-device run takes over
+all rows is reduced over the split axes: the dynamic max-abs scales and
 the auto-range maximum (:func:`global_max`) and the A/D operation count
-(:func:`global_sum`, once over the data axes, never again over the model
-axis); outputs come back whole (:func:`gather_rows`).
+(:func:`global_sum`, once); outputs come back whole (:func:`gather_rows`).
+A section that every model rank runs on the same rows (:func:`replicated`:
+a patch frontend's projection, the serving logits) reduces over the data
+axes only, and its A/D count is kept by model rank 0 (:func:`counts_here`).
 """
 from __future__ import annotations
 
@@ -91,53 +97,176 @@ def batch_share(mesh, batch: int) -> Optional[slice]:
     return slice(i * per, (i + 1) * per)
 
 
+def seq_size(mesh) -> int:
+    """The ranks of the model axis (1 without one)."""
+    if mesh is None or "model" not in sharding.axis_names(mesh):
+        return 1
+    return sharding.axis_size(mesh, "model")
+
+
+def seq_share(mesh, cfg, length: int) -> Optional[slice]:
+    """This rank's block of a ``length``-row sequence on ``'model'``
+    (``.start`` is its absolute offset), or None: the layout is not
+    ``fsdp_cp``, the axis has one rank, or it does not divide ``length``
+    (every rank then runs all rows)."""
+    n = seq_size(mesh)
+    if n == 1 or cfg.parallelism != "fsdp_cp" or length % n:
+        return None
+    per = length // n
+    i = mesh.get_local_rank("model")
+    return slice(i * per, (i + 1) * per)
+
+
 @contextlib.contextmanager
-def split_batch(on: bool = True):
-    """Mark the dynamic extent as running this rank's share of the rows."""
-    prev = sharding._ACTIVE["split"]
-    sharding._ACTIVE["split"] = on
+def split_rows(axes: tuple = ()):
+    """Mark the dynamic extent as running this rank's block of the rows,
+    split over the mesh ``axes`` (data axes for the batch, ``'model'``
+    for the sequence; empty for none)."""
+    prev = sharding._ACTIVE["split"], sharding._ACTIVE["replicated"]
+    sharding._ACTIVE["split"] = tuple(axes)
+    sharding._ACTIVE["replicated"] = False
     try:
         yield
     finally:
-        sharding._ACTIVE["split"] = prev
+        sharding._ACTIVE["split"], sharding._ACTIVE["replicated"] = prev
 
 
-def batch_is_split() -> bool:
-    """Whether the running forward holds only this rank's rows."""
-    return _split_mesh() is not None and dp_size(_split_mesh()) > 1
+@contextlib.contextmanager
+def replicated():
+    """Mark a section that every model rank runs on the same rows: its
+    reductions skip ``'model'`` and its A/D count is model rank 0's."""
+    prev = sharding._ACTIVE["replicated"]
+    sharding._ACTIVE["replicated"] = True
+    try:
+        yield
+    finally:
+        sharding._ACTIVE["replicated"] = prev
 
 
-def _split_mesh():
+def _reduce_axes() -> tuple:
+    """The mesh axes that hold distinct rows of the running section."""
     mesh = sharding._ACTIVE["mesh"]
-    return mesh if sharding._ACTIVE["split"] and mesh is not None else None
+    if mesh is None:
+        return ()
+    axes = sharding._ACTIVE["split"]
+    if sharding._ACTIVE["replicated"]:
+        axes = tuple(a for a in axes if a != "model")
+    return tuple(a for a in axes if sharding.axis_size(mesh, a) > 1)
+
+
+def rows_split() -> bool:
+    """Whether the running section holds only this rank's rows."""
+    return bool(_reduce_axes())
+
+
+def split_ranks() -> int:
+    """The ranks over which the running section's rows are split."""
+    n = 1
+    for a in _reduce_axes():
+        n *= sharding.axis_size(sharding._ACTIVE["mesh"], a)
+    return n
+
+
+def gather_tokens(t: torch.Tensor) -> torch.Tensor:
+    """A (rows, seq, ...) tensor of this rank's block of the tokens ->
+    the whole (B, S, ...) one device holds, on every rank."""
+    mesh, axes = sharding._ACTIVE["mesh"], _reduce_axes()
+    if "model" in axes:
+        t = gather_rows(t, 1, mesh, ("model",))
+    data = tuple(a for a in axes if a != "model")
+    return gather_rows(t, 0, mesh, data) if data else t
+
+
+def seq_is_split() -> bool:
+    """Whether the running forward holds only this rank's block of the
+    sequence (attention then gathers the keys and values)."""
+    mesh = sharding._ACTIVE["mesh"]
+    return mesh is not None and "model" in sharding._ACTIVE["split"] and \
+        seq_size(mesh) > 1
+
+
+def seq_offset(rows: int) -> int:
+    """The absolute position of this rank's first row of the sequence,
+    each rank holding ``rows`` of it (0 while it is not split)."""
+    if not seq_is_split():
+        return 0
+    return sharding._ACTIVE["mesh"].get_local_rank("model") * rows
+
+
+def counts_here() -> bool:
+    """Whether this rank adds the running section's A/D operations to the
+    forward's count: always, but in a :func:`replicated` section of a
+    sequence-split forward only on model rank 0."""
+    return not (sharding._ACTIVE["replicated"] and seq_is_split()
+                and sharding._ACTIVE["mesh"].get_local_rank("model") != 0)
+
+
+def reduce_over_split(t: torch.Tensor, op) -> torch.Tensor:
+    """All-reduce ``t`` in place over the axes that split the running
+    section's rows; returns it."""
+    mesh = sharding._ACTIVE["mesh"]
+    for a in _reduce_axes():
+        dist.all_reduce(t, op=op, group=mesh.get_group(a))
+    return t
+
+
+def cell_reducer():
+    """K1's split launch's cell reduction (an in-place MAX over the axes
+    that split the rows), or None while one call holds every row."""
+    if not _reduce_axes():
+        return None
+    return lambda cells: reduce_over_split(cells, dist.ReduceOp.MAX)
 
 
 def _reduce(t: torch.Tensor, op) -> torch.Tensor:
-    mesh = _split_mesh()
-    if mesh is None:
+    if not _reduce_axes():
         return t
-    out = t.detach().clone()
-    for a in dp_axes(mesh):
-        dist.all_reduce(out, op=op, group=mesh.get_group(a))
-    return out
+    return reduce_over_split(t.detach().clone(), op)
 
 
 def global_max(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (a maximum over this rank's rows) maximised over the data
-    axes while the batch is split; as it is otherwise."""
+    """``t`` (a maximum over this rank's rows) maximised over the axes
+    that split the rows; as it is otherwise."""
     return _reduce(t, dist.ReduceOp.MAX)
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the data axes while the batch is split."""
+    """``t`` summed over the axes that split the rows."""
     return _reduce(t, dist.ReduceOp.SUM)
 
 
-def gather_rows(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """Concatenate every data rank's ``t`` along ``dim``, in rank order."""
-    for a in reversed(dp_axes(mesh)):         # inner axis first
+def gather_rows(t: torch.Tensor, dim: int, mesh, axes=None) -> torch.Tensor:
+    """Concatenate every rank's ``t`` along ``dim`` over the mesh ``axes``
+    (default: the data axes), outer axis major, in rank order."""
+    axes = dp_axes(mesh) if axes is None else axes
+    for a in reversed(axes):                  # inner axis first
         parts = [torch.empty_like(t) for _ in range(
             sharding.axis_size(mesh, a))]
         dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
         t = torch.cat(parts, dim)
     return t
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along ``dim`` over ``'model'``; the backward sums the
+    ranks' gradients of the whole and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mesh):
+        ctx.dim, ctx.mesh, ctx.rows = dim, mesh, t.shape[dim]
+        return gather_rows(t, dim, mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.mesh.get_group("model"))
+        i = ctx.mesh.get_local_rank("model")
+        return g.narrow(ctx.dim, i * ctx.rows, ctx.rows), None, None
+
+
+def gather_seq(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's block of ``t`` concatenated along ``dim`` (the
+    whole sequence) while the sequence is split; ``t`` otherwise."""
+    if not seq_is_split():
+        return t
+    return _GatherSeq.apply(t, dim, sharding._ACTIVE["mesh"])

@@ -20,10 +20,15 @@ the block order JAX gives the same entry.
 Parameters are placed as DTensors by :func:`param_pspecs`; compute reads
 each one gathered whole (:func:`full`, per layer through
 :func:`gather_hooks`), since the kernels take no DTensor.  Activations of
-a meshed run are plain tensors holding this rank's rows of the batch
-(``dist.group``), so :func:`shard` returns its input: the reference's
-sequence/head/FFN layouts on ``'model'`` have no counterpart yet, and the
-model axis replicates compute.
+a meshed run are plain tensors holding this rank's block of the rows
+(``dist.group``): its share of the batch on the data axes and, under the
+context-parallel layout (``parallelism="fsdp_cp"``, the dense decoders),
+its block of the sequence on ``'model'``, with the keys and values
+gathered whole for attention.  The reference's constraint sites of that
+layout are those moves, made explicitly; :func:`shard` itself returns its
+input, and the tensor-parallel layouts on ``'model'`` (heads, FFN,
+experts, mamba channels: ``parallelism="tp"``) have no counterpart yet,
+so there the model axis repeats compute.
 
 The port keeps one tensor a layer (``layers.{d}.…``), so a per-layer
 leaf's spec is the reference's stacked spec without its leading stack
@@ -35,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import re
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -58,9 +64,49 @@ _DEFAULT_RULES = {
     "model": "model",
 }
 
-# the active mesh + resolution rules, and whether the running forward holds
-# this rank's share of the batch rows (``dist.group.split_batch``)
-_ACTIVE: dict = {"mesh": None, "rules": dict(_DEFAULT_RULES), "split": False}
+
+
+class _State(threading.local):
+    """The active mesh + resolution rules, the mesh axes over which the
+    running forward's rows are split (``dist.group.split_rows``: the data
+    axes for the batch, ``'model'`` for the sequence) and whether it is in
+    a section every model rank runs on the same rows
+    (``dist.group.replicated``).  Per thread: ranks that share a process
+    (a threaded process group) each keep their own."""
+
+    def __init__(self):
+        self.d = {"mesh": None, "rules": dict(_DEFAULT_RULES), "split": (),
+                  "replicated": False}
+
+
+class _Active:
+    _tls = _State()
+
+    def __getitem__(self, key):
+        return self._tls.d[key]
+
+    def __setitem__(self, key, value):
+        self._tls.d[key] = value
+
+
+_ACTIVE = _Active()
+
+
+class carried:
+    """The calling thread's active state (mesh, rules, split axes,
+    replicated flag), reinstalled in the thread that enters this: autograd
+    runs a CUDA graph's backward, and with it a rematerialised layer's
+    recompute, on a device thread of its own, whose state is empty."""
+
+    def __init__(self):
+        self._d = dict(_ACTIVE._tls.d)
+
+    def __enter__(self):
+        self._prev, _ACTIVE._tls.d = _ACTIVE._tls.d, dict(self._d)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE._tls.d = self._prev
 
 
 def _canonical(entry):
@@ -238,11 +284,12 @@ def local_bytes(t: torch.Tensor, mesh, spec: PartitionSpec) -> int:
 def shard(x, *axes):
     """The reference's activation constraint: returns ``x`` as it is.
 
-    The port's activations are plain tensors with or without a mesh (each
-    layer gathers its weights; a meshed run holds this rank's rows of the
-    batch, ``dist.group``), so there is nothing to place until the
-    tensor-parallel split of the kernels gives the model axis a layout;
-    the model calls no ``shard`` until then."""
+    The port places activations explicitly (``dist.group``): a meshed
+    run holds this rank's rows of the batch and, under ``fsdp_cp``, its
+    block of the sequence, and gathers the attention keys and values
+    where the reference's constraint replicates them.  Nothing else has a
+    layout to place until the tensor-parallel split of the kernels gives
+    ``'model'`` one (``parallelism="tp"``); the model calls no ``shard``."""
     return x
 
 
@@ -414,15 +461,16 @@ def assign(dst, src) -> None:
 
 def full(t):
     """A tensor as compute reads it: a DTensor gathered to its whole value,
-    anything else as it is.  While the batch is split over the mesh's
-    data axes (``dist.group.split_batch``) each rank's gradient is a
-    partial sum over those axes, and the backward reduces it there."""
+    anything else as it is.  While the rows are split over mesh axes
+    (``dist.group.split_rows``: the batch over the data axes, the
+    sequence over ``'model'``) each rank's gradient is a partial sum over
+    those axes, and the backward reduces it there."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     if not isinstance(t, DTensor):
         return t
     mesh = t.device_mesh
     split = _ACTIVE["split"]
-    grad = [Partial() if split and n in _DP_AXES else Replicate()
+    grad = [Partial() if n in split else Replicate()
             for n in axis_names(mesh)]
     if all(p.is_replicate() or mesh.size(i) == 1
            for i, p in enumerate(t.placements)):

@@ -44,10 +44,14 @@
 //     128-row group).  Each of the 128 threads issues its 16 loads of 16
 //     bytes before it stages a in shared memory.  The m-tile is the fastest
 //     grid index, so the blocks that share a weight tile run together.
-//   In both, a thread owns 8 adjacent columns and a slice of the group's
-//   rows; weights are widened to f32 in registers (exact for bf16) and
-//   accumulated in f32 FMA, rows in order; the row slices are combined by
-//   a shuffle within each warp, then warp after warp in shared memory.
+//   In both, a thread owns 8 adjacent columns; weights are widened to f32
+//   in registers (exact for bf16) and accumulated in f32 FMA, rows in
+//   order, in chains of 8 rows (16 per group); two adjacent chains are
+//   added (the TMA body's warp shuffle, the plain-load body's thread holds
+//   both), then the 8 pairs in order in shared memory.  So both bodies sum
+//   a partial sum in one order, whatever M is: a row's partial sums do not
+//   depend on the rows it is launched with, and a split launch (below)
+//   fits the same register.
 //   pass 2 (trq_group_mvm_quantize): one block per (row of y, 32-column
 //     strip).  It takes the maximum of the 32 cells and derives the
 //     registers on the device (no host sync); its 8 warps quantize the
@@ -60,6 +64,13 @@
 // the w_gate of a 2,048-token prefill.  No tensor cores and no TF32 (TF32
 // would change which quantizer bin a partial sum falls in): wgmma with
 // 3xTF32 for prefill is later work.
+//
+// Split launch: trq_group_mvm_psums_launch runs the memset and pass 1 and
+// leaves the 32 maximum cells in stats; trq_group_mvm_quantize_launch runs
+// pass 2 on given cells.  Between them, ranks that each hold a block of
+// the rows take the cells' maximum over the ranks (the cells are the bits
+// of non-negative floats, so an int32 MAX is the float maximum): pass 2
+// then fits the register one call on all the rows would fit.
 //
 // Ragged edges: loads beyond M, K, N read 0 (zero K rows add exact zeros to
 // a partial sum, as the reference's zero padding does); the scratch, the
@@ -77,8 +88,10 @@ namespace {
 constexpr int kXbar = 128;     // crossbar rows per group (one ADC conversion)
 constexpr int kCols = 128;     // output columns per pass-1 block
 constexpr int kRows = 16;      // rows of the group per pass-1 thread
-constexpr int kThreads = 128;  // 4 warps: 16 column threads x 8 row slices
+constexpr int kSlice = 8;      // rows of one chain (the TMA body's slice)
+constexpr int kThreads = 128;  // 4 warps: 16 column threads x 8 row pairs
 constexpr int kWarps = kThreads / 32;
+constexpr int kPairs = kThreads / 16;  // 16-row pairs of slices a group
 constexpr int kVec = 8;        // adjacent columns per thread (16 B of bf16)
 constexpr int kMChunk = 4;     // m rows reduced through shared memory at once
 constexpr int kMaxCells = 32;  // auto-range maximum cells (one per lane)
@@ -143,7 +156,10 @@ struct Weights<false> {
 
 // Pass 1 off the TMA path: the per-group f32 partial sums of one (MT-row,
 // 128-column) tile of one group into part (M, G, N); with vmax, the
-// block's max |psum| into one of the kMaxCells cells.
+// block's max |psum| into one of the kMaxCells cells.  A thread's 16 rows
+// are two of the TMA body's 8-row slices, summed as two chains and added
+// as its shuffle adds them; the 8 row pairs then go in order, as its 8
+// warps do.  So a partial sum is the TMA body's, bit for bit.
 template <bool BF16, int MT>
 __global__ void __launch_bounds__(kThreads)
 trq_group_mvm_psums(const float* __restrict__ a, const void* __restrict__ w_raw,
@@ -152,7 +168,7 @@ trq_group_mvm_psums(const float* __restrict__ a, const void* __restrict__ w_raw,
   using W = Weights<BF16>;
   const typename W::T* w = static_cast<const typename W::T*>(w_raw);
   __shared__ __align__(16) float As[kXbar][MT];       // the group's a, k-major
-  __shared__ __align__(16) float red[kWarps][kMChunk][kCols];
+  __shared__ __align__(16) float red[kPairs][kMChunk][kCols];
   __shared__ float wmax[kWarps];
 
   const int tid = threadIdx.x;
@@ -162,7 +178,7 @@ trq_group_mvm_psums(const float* __restrict__ a, const void* __restrict__ w_raw,
   const int g = blockIdx.z;
   const int k0 = g * kXbar;
   const int c = lane & 15;                    // columns n0 + 8c .. 8c + 7
-  const int s = warp * 2 + (lane >> 4);       // rows k0 + 8s .. 8s + 7
+  const int s = warp * 2 + (lane >> 4);       // rows k0 + 16s .. 16s + 15
   const int n = n0 + kVec * c;
   const int valid_n = max(0, min(N - n, kVec));
 
@@ -181,57 +197,50 @@ trq_group_mvm_psums(const float* __restrict__ a, const void* __restrict__ w_raw,
   }
   __syncthreads();
 
-  float ps[MT][kVec];
-#pragma unroll
-  for (int mm = 0; mm < MT; ++mm)
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) ps[mm][j] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    float wf[kVec];
-    W::widen(raw[i], wf);
-    float av[MT];
-#pragma unroll
-    for (int q = 0; q < MT; q += 4) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(&As[kRows * s + i][q]);
-      av[q] = t.x; av[q + 1] = t.y; av[q + 2] = t.z; av[q + 3] = t.w;
-    }
-#pragma unroll
-    for (int mm = 0; mm < MT; ++mm)
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) ps[mm][j] = fmaf(av[mm], wf[j], ps[mm][j]);
-  }
-
-  // the warp's two row slices (lanes c and c + 16): b + a == a + b in IEEE,
-  // so both lanes hold the same sum
-#pragma unroll
-  for (int mm = 0; mm < MT; ++mm)
-#pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      ps[mm][j] = __fadd_rn(ps[mm][j],
-                            __shfl_xor_sync(0xffffffffu, ps[mm][j], 16));
-
-  // then the 8 warps in order, kMChunk m rows at a time
   float lmax = 0.0f;
 #pragma unroll
   for (int mc = 0; mc < MT; mc += kMChunk) {
-    if (lane < 16) {
+    // the two 8-row chains of kMChunk rows of a, rows in order
+    float ps[2][kMChunk][kVec];
 #pragma unroll
-      for (int q = 0; q < kMChunk; ++q) {
-        float4* dst = reinterpret_cast<float4*>(&red[warp][q][kVec * c]);
-        dst[0] = make_float4(ps[mc + q][0], ps[mc + q][1], ps[mc + q][2],
-                             ps[mc + q][3]);
-        dst[1] = make_float4(ps[mc + q][4], ps[mc + q][5], ps[mc + q][6],
-                             ps[mc + q][7]);
-      }
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < kMChunk; ++q)
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) ps[h][q][j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int h = i / kSlice;
+      float wf[kVec];
+      W::widen(raw[i], wf);
+      const float4 t =
+          *reinterpret_cast<const float4*>(&As[kRows * s + i][mc]);
+      const float av[kMChunk] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int q = 0; q < kMChunk; ++q)
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          ps[h][q][j] = fmaf(av[q], wf[j], ps[h][q][j]);
+    }
+    // the pair, as the TMA body's shuffle adds its two slices
+#pragma unroll
+    for (int q = 0; q < kMChunk; ++q) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j)
+        ps[0][q][j] = __fadd_rn(ps[0][q][j], ps[1][q][j]);
+      float4* dst = reinterpret_cast<float4*>(&red[s][q][kVec * c]);
+      dst[0] = make_float4(ps[0][q][0], ps[0][q][1], ps[0][q][2],
+                           ps[0][q][3]);
+      dst[1] = make_float4(ps[0][q][4], ps[0][q][5], ps[0][q][6],
+                           ps[0][q][7]);
     }
     __syncthreads();
+    // then the 8 pairs in order, as the TMA body's 8 warps
     for (int idx = tid; idx < kMChunk * kCols; idx += kThreads) {
       const int q = idx / kCols, col = idx % kCols;
       float r = red[0][q][col];
 #pragma unroll
-      for (int v = 1; v < kWarps; ++v) r = __fadd_rn(r, red[v][q][col]);
+      for (int v = 1; v < kPairs; ++v) r = __fadd_rn(r, red[v][q][col]);
       const int gm = m0 + mc + q, gn = n0 + col;
       if (gm < M && gn < N) {
         part[((size_t)gm * G + g) * N + gn] = r;
@@ -621,15 +630,18 @@ template <int MT>
 cudaError_t launch_pass1_tma(const float* a, const void* w, float* part,
                              unsigned int* vmax, int M, int K, int N, int G,
                              cudaStream_t s) {
+  // set only once the attribute is: a second host thread's first call
+  // (ranks that share a process) sets it again rather than launch early
   static int sms = 0;
   if (sms == 0) {
-    int dev = 0;
+    int dev = 0, count = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
     cudaError_t err = cudaFuncSetAttribute(
         trq_group_mvm_psums_tma<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         TmaLayout<MT>::kBytes);
     if (err != cudaSuccess) return err;
+    sms = count;
   }
   CUtensorMap wmap, amap;
   if (!tensor_map(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, kXbar,
@@ -652,6 +664,32 @@ cudaError_t pass1_tma(const float* a, const void* w, float* part,
   return launch_pass1_tma<16>(a, w, part, vmax, M, K, N, G, s);
 }
 
+// Pass 1 on the TMA body where it applies, else the plain-load body.
+cudaError_t run_pass1(const float* a, const void* w, int w_bf16, float* part,
+                      unsigned int* vmax, int M, int K, int N, int G,
+                      cudaStream_t s) {
+  // 16-byte weight loads and TMA maps need 16-byte aligned rows
+  const bool aligned = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const bool a_aligned = (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  if (w_bf16 && M <= 16 && aligned && a_aligned && N % 8 == 0 && K % 4 == 0)
+    return pass1_tma(a, w, part, vmax, M, K, N, G, s);
+  if (w_bf16)
+    pass1<true>(a, w, part, vmax, M, K, N, G, aligned && N % 8 == 0, s);
+  else
+    pass1<false>(a, w, part, vmax, M, K, N, G, aligned && N % 4 == 0, s);
+  return cudaGetLastError();
+}
+
+cudaError_t run_pass2(const float* part, const float* scalars,
+                      const unsigned int* vmax, float* y,
+                      unsigned long long* ops, int M, int N, int G, int n_r1,
+                      int n_r2, int m, int nu, int uniform, cudaStream_t s) {
+  const unsigned int blocks = (unsigned int)M * ((N + kQCols - 1) / kQCols);
+  trq_group_mvm_quantize<<<blocks, 32 * kQWarps, 0, s>>>(
+      part, scalars, vmax, y, ops, M, N, G, n_r1, n_r2, m, nu, uniform);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a: (M, K) f32 row-major; w: (K, N) row-major, bf16 (w_bf16 = 1) or f32;
@@ -659,8 +697,8 @@ cudaError_t pass1_tma(const float* a, const void* w, float* part,
 // scratch, G = ceil(K / 128); y: (M, N) f32 out; stats: kStats int64 this
 // call zeroes on the stream, [0] the op total of the valid region, then the
 // kMaxCells auto-range maximum cells (u32 float bits); auto_range: derive
-// delta_r1 from the call's own partial sums.  M, K and N are at least 1.  Returns the first CUDA
-// error of the launches (0 on success).
+// delta_r1 from the call's own partial sums.  M, K and N are at least 1.
+// Returns the first CUDA error of the launches (0 on success).
 extern "C" int trq_group_mvm_launch(const float* a, const void* w,
                                     int w_bf16, const float* scalars,
                                     float* part, float* y,
@@ -673,22 +711,41 @@ extern "C" int trq_group_mvm_launch(const float* a, const void* w,
   unsigned int* vmax =
       auto_range ? reinterpret_cast<unsigned int*>(stats + 1) : nullptr;
   cudaError_t err = cudaMemsetAsync(stats, 0, kStats * sizeof(*stats), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte weight loads and TMA maps need 16-byte aligned rows
-  const bool aligned = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  const bool a_aligned = (reinterpret_cast<uintptr_t>(a) & 15) == 0;
-  if (w_bf16 && M <= 16 && aligned && a_aligned && N % 8 == 0 && K % 4 == 0) {
-    err = pass1_tma(a, w, part, vmax, M, K, N, G, s);
-  } else {
-    if (w_bf16)
-      pass1<true>(a, w, part, vmax, M, K, N, G, aligned && N % 8 == 0, s);
-    else
-      pass1<false>(a, w, part, vmax, M, K, N, G, aligned && N % 4 == 0, s);
-    err = cudaGetLastError();
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned int blocks2 = (unsigned int)M * ((N + kQCols - 1) / kQCols);
-  trq_group_mvm_quantize<<<blocks2, 32 * kQWarps, 0, s>>>(
-      part, scalars, vmax, y, stats, M, N, G, n_r1, n_r2, m, nu, uniform);
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) err = run_pass1(a, w, w_bf16, part, vmax, M, K, N,
+                                          G, s);
+  if (err == cudaSuccess)
+    err = run_pass2(part, scalars, vmax, y, stats, M, N, G, n_r1, n_r2, m, nu,
+                    uniform, s);
+  return static_cast<int>(err);
+}
+
+// The split launch's first half: zero stats, then pass 1 with the maximum
+// cells always on.  Operands as trq_group_mvm_launch's.
+extern "C" int trq_group_mvm_psums_launch(const float* a, const void* w,
+                                          int w_bf16, float* part,
+                                          unsigned long long* stats, int M,
+                                          int K, int N, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = (K + kXbar - 1) / kXbar;
+  cudaError_t err = cudaMemsetAsync(stats, 0, kStats * sizeof(*stats), s);
+  if (err == cudaSuccess)
+    err = run_pass1(a, w, w_bf16, part,
+                    reinterpret_cast<unsigned int*>(stats + 1), M, K, N, G, s);
+  return static_cast<int>(err);
+}
+
+// The split launch's second half: pass 2 on part with delta_r1 fitted to
+// the maximum of the cells in stats (as reduced over the ranks), adding
+// the op total of the valid region to stats[0].
+extern "C" int trq_group_mvm_quantize_launch(const float* part,
+                                             const float* scalars, float* y,
+                                             unsigned long long* stats, int M,
+                                             int K, int N, int n_r1, int n_r2,
+                                             int m, int nu, int uniform,
+                                             void* stream) {
+  const int G = (K + kXbar - 1) / kXbar;
+  return static_cast<int>(run_pass2(
+      part, scalars, reinterpret_cast<const unsigned int*>(stats + 1), y,
+      stats, M, N, G, n_r1, n_r2, m, nu, uniform,
+      static_cast<cudaStream_t>(stream)));
 }

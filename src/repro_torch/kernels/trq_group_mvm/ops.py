@@ -12,8 +12,10 @@ import torch
 
 from ...core.trq import TRQParams, register_scalars
 from ..build import route
-from .kernel import WEIGHT_DTYPES, trq_group_mvm_cuda
-from .ref import trq_group_mvm_ref
+from .kernel import (WEIGHT_DTYPES, trq_group_mvm_cuda,
+                     trq_group_mvm_psums_cuda, trq_group_mvm_quantize_cuda)
+from .ref import (trq_group_mvm_psums_ref, trq_group_mvm_quantize_ref,
+                  trq_group_mvm_ref)
 
 
 def pack_scalars(p: TRQParams, grid, device) -> torch.Tensor:
@@ -24,22 +26,28 @@ def pack_scalars(p: TRQParams, grid, device) -> torch.Tensor:
 
 def trq_group_mvm_2d(a: torch.Tensor, w: torch.Tensor, scalars, *,
                      n_r1: int, n_r2: int, m: int, nu: int = 1,
-                     mode: str = "twin", auto_range: bool = False):
+                     mode: str = "twin", auto_range: bool = False,
+                     reduce_cells=None):
     """(M, K) f32 x (K, N) bf16 or f32 per-group TRQ matmul -> (y f32, ops
     int64).  ``auto_range`` fits ``delta_r1`` to the call's own partial
-    sums, in the same pass that reads the weights."""
-    fn = trq_group_mvm_ref if route(a) == "cpu" else trq_group_mvm_cuda
+    sums, in the same pass that reads the weights.  With ``auto_range``
+    and ``reduce_cells`` (ranks that each hold a block of the rows), the
+    split launch runs instead: pass 1, ``reduce_cells(cells)`` (an
+    in-place MAX of the int32 maximum cells over the ranks), pass 2 on
+    the reduced cells, so the register is the one a call on every rank's
+    rows fits."""
+    cpu = route(a) == "cpu"
+    if auto_range and reduce_cells is not None:
+        psums, quantize = (trq_group_mvm_psums_ref,
+                           trq_group_mvm_quantize_ref) if cpu else \
+            (trq_group_mvm_psums_cuda, trq_group_mvm_quantize_cuda)
+        part, stats = psums(a, w)
+        reduce_cells(stats[1:].view(torch.int32))
+        return quantize(part, stats, scalars, a.shape[1], n_r1=n_r1,
+                        n_r2=n_r2, m=m, nu=nu, mode=mode)
+    fn = trq_group_mvm_ref if cpu else trq_group_mvm_cuda
     return fn(a, w, scalars, n_r1=n_r1, n_r2=n_r2, m=m, nu=nu, mode=mode,
               auto_range=auto_range)
-
-
-def psum_amax(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """max |partial sum| of ``a (..., K) @ w (K, N)`` over its 128-row
-    groups, computed as the plain version computes its auto-range input
-    (what a split batch reduces before the kernel runs)."""
-    from .ref import group_psums
-    return torch.amax(torch.abs(group_psums(
-        a.reshape(-1, a.shape[-1]).float(), w)))
 
 
 def weight_operand(w: torch.Tensor) -> torch.Tensor:
@@ -50,11 +58,13 @@ def weight_operand(w: torch.Tensor) -> torch.Tensor:
 
 def trq_group_mvm(a: torch.Tensor, w: torch.Tensor, p: TRQParams,
                   a_scale=1.0, w_scale=1.0, *, with_ops: bool = False,
-                  auto_range: bool = False):
+                  auto_range: bool = False, reduce_cells=None):
     """Per-128-row-group signed-TRQ matmul: a (..., K) @ w (K, N), the
     counterpart of ``repro.kernels.trq_group_mvm_pallas``.  With
     ``with_ops`` also returns the total A/D operations (int64); with
-    ``auto_range`` first fits ``delta_r1`` as ``auto_range_fit`` does."""
+    ``auto_range`` first fits ``delta_r1`` as ``auto_range_fit`` does
+    (over every rank's rows through ``reduce_cells``, as
+    :func:`trq_group_mvm_2d`)."""
     lead = a.shape[:-1]
     k = a.shape[-1]
     n = w.shape[1]
@@ -63,6 +73,7 @@ def trq_group_mvm(a: torch.Tensor, w: torch.Tensor, p: TRQParams,
     y, ops = trq_group_mvm_2d(
         a.reshape(-1, k).float().contiguous(), weight_operand(w),
         pack_scalars(p, grid, a.device), n_r1=p.n_r1, n_r2=p.n_r2, m=p.m,
-        nu=p.nu, mode=p.mode, auto_range=auto_range)
+        nu=p.nu, mode=p.mode, auto_range=auto_range,
+        reduce_cells=reduce_cells)
     y = y.reshape(*lead, n)
     return (y, ops) if with_ops else y

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from ...core.trq import TRQParams, auto_range_delta, trq_ad_ops, trq_quant
 
 XBAR = 128
+STATS = 17      # the kernel's stats words: op total, 32 u32 maximum cells
 
 
 def group_psums(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -33,21 +34,52 @@ def trq_group_mvm_ref(a: torch.Tensor, w: torch.Tensor,
     scalars: [delta_r1, bias, grid] f32.  With ``auto_range`` the partial
     sums' max |psum| scales ``delta_r1`` first (:func:`auto_range_delta`).
     Returns (y (M, N) f32, ops 0-dim int64 over the valid region)."""
-    mm = a.shape[0]
-    n = w.shape[1]
     psum = group_psums(a, w)                            # (M, G, N) f32
-    g = psum.shape[1]
+    vmax = torch.amax(torch.abs(psum)) if auto_range else None
+    return _quantize(psum, scalars, vmax, n_r1=n_r1, n_r2=n_r2, m=m, nu=nu,
+                     mode=mode)
+
+
+def trq_group_mvm_psums_ref(a: torch.Tensor, w: torch.Tensor):
+    """Pass 1 of the split launch: (part (M, G, N) f32, stats (17,) int64
+    laid out as the kernel's: word 0 zero, words 1..16 the 32 maximum
+    cells, ``stats[1:].view(torch.int32)``, here cell 0 holding the bits of
+    max |psum| and the rest 0)."""
+    part = group_psums(a, w)
+    stats = torch.zeros(STATS, dtype=torch.int64, device=a.device)
+    stats[1:].view(torch.int32)[0] = torch.amax(torch.abs(part)).view(
+        torch.int32)
+    return part, stats
+
+
+def trq_group_mvm_quantize_ref(part: torch.Tensor, stats: torch.Tensor,
+                               scalars: torch.Tensor, k: int, *, n_r1: int,
+                               n_r2: int, m: int, nu: int = 1,
+                               mode: str = "twin"):
+    """Pass 2 of the split launch: ``delta_r1`` fitted to the maximum of
+    the cells in ``stats``, then the quantized sum.  Returns (y, ops),
+    ops as ``stats[0]`` plus this call's count."""
+    vmax = torch.amax(stats[1:].view(torch.int32)).view(torch.float32)
+    y, ops = _quantize(part, scalars, vmax, n_r1=n_r1, n_r2=n_r2, m=m,
+                       nu=nu, mode=mode)
+    return y, stats[0] + ops
+
+
+def _quantize(psum: torch.Tensor, scalars: torch.Tensor, vmax, *,
+              n_r1: int, n_r2: int, m: int, nu: int, mode: str):
+    """The quantized sum of (M, G, N) partial sums, ``delta_r1`` fitted to
+    ``vmax`` unless it is None."""
+    mm, g, n = psum.shape
     grid = scalars[2]
     delta_r1 = scalars[0]
-    if auto_range:
-        delta_r1 = auto_range_delta(delta_r1, torch.amax(torch.abs(psum)),
-                                    grid, n_r2 + m)
+    if vmax is not None:
+        delta_r1 = auto_range_delta(delta_r1, vmax, grid, n_r2 + m)
     p = TRQParams(delta_r1=delta_r1, bias=scalars[1], n_r1=n_r1,
                   n_r2=n_r2, m=m, nu=nu, mode=mode, signed=True)
     scaled = psum / grid
     q = trq_quant(scaled, p) * grid
     # accumulate the groups in order, as the kernel's second pass does
-    y = torch.zeros((mm, n), dtype=torch.float32, device=a.device)
+    y = torch.zeros((mm, n), dtype=torch.float32, device=psum.device)
     for gi in range(g):
         y = y + q[:, gi]
     ops = trq_ad_ops(scaled, p).sum(dtype=torch.int64)

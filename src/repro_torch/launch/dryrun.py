@@ -9,7 +9,8 @@ run its step once on
 in one host process: a ``fake`` process group of 512 ranks stands in for
 the cards (its collectives move nothing), and every tensor is on the
 ``meta`` device (shapes and dtypes, no data).  The process runs the
-program of rank 0, so what it measures is one rank's:
+program of rank 0, so what it measures is one rank's (its share of the
+batch and, under ``fsdp_cp``, its block of the sequence):
 
 * ``bytes_per_device`` — its arguments' local shards (parameters,
   optimizer state, cache, batch) plus the peak of the storage its step

@@ -4,7 +4,10 @@ the enc-dec cross-attention (port of ``repro.models.attention``; attention
 is plain tensor code in the reference too).
 
 Layouts are the reference's: q (B, S, KV, G, hd) grouped by KV head, k/v
-and caches (B, S, KV, hd).
+and caches (B, S, KV, hd).  Under the context-parallel layout
+(``fsdp_cp``, ``dist.group``) a rank holds its block of the sequence:
+its q rows attend at their absolute offset to the keys and values
+gathered whole, and a cache is written whole from them.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..dist import group
+from ..dist.sharding import active_mesh
 from .layers import PimContext, PimLinear, apply_rope
 
 NEG_INF = -1e30
@@ -70,12 +75,18 @@ def full_attention(q, k, v, causal: bool, q_off=0) -> torch.Tensor:
 
 
 def chunked_attention(q, k, v, causal: bool, chunk_q: int,
-                      chunk_k: int) -> torch.Tensor:
+                      chunk_k: int, q_off: int = 0) -> torch.Tensor:
     """Flash-style online-softmax attention with all q chunks batched.
-    q: (B,S,KV,G,hd); k/v: (B,S,KV,hd); S divides by both chunks."""
+    q: (B,Sq,KV,G,hd); k/v: (B,Sk,KV,hd); Sk divides by ``chunk_k``.
+    ``q_off`` is the absolute position of q row 0 (a rank's block of the
+    sequence, the reference's ``context_parallel``): the causal mask is
+    by absolute position, and a block that ``chunk_q`` does not divide is
+    one q chunk (each row's arithmetic is its own either way)."""
     b, sq, kv, g, hd = q.shape
     sk = k.shape[1]
     scale = hd ** -0.5
+    if sq % chunk_q:
+        chunk_q = sq
     nq, nk = sq // chunk_q, sk // chunk_k
     dev = q.device
     qc = q.reshape(b, nq, chunk_q, kv, g, hd).float() * scale
@@ -87,7 +98,7 @@ def chunked_attention(q, k, v, causal: bool, chunk_q: int,
     acc = torch.zeros((b, nq, kv, g, chunk_q, hd), dtype=torch.float32,
                       device=dev)
     qpos = (torch.arange(nq, device=dev)[:, None] * chunk_q
-            + torch.arange(chunk_q, device=dev)[None, :])       # (nq, cq)
+            + torch.arange(chunk_q, device=dev)[None, :]) + q_off   # (nq, cq)
     for j in range(nk):
         sc = torch.einsum("bnqkgd,bskd->bnkgqs", qc, kc[:, j].float())
         if causal:
@@ -145,7 +156,10 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
     writes k/v at [0, s); decode (s == 1) writes at cache['len'];
     ``cont`` appends the s tokens at cache['len'] and attends over the
     whole (trimmed) cache buffer.  ``rope=False`` leaves q and k unrotated
-    (``positions`` is then unused)."""
+    (``positions`` is then unused).  While the sequence is split
+    (``dist.group.seq_is_split``), ``x`` is this rank's block: k and v are
+    gathered whole after RoPE, every choice is the whole sequence's, and
+    the q rows attend at their absolute offset."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     hd = cfg.hd
@@ -155,6 +169,11 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
     if rope:
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
+    off = group.seq_offset(s)
+    if group.seq_is_split():
+        # the reference's shard(k, "batch", None, None, None)
+        k, v = group.gather_seq(k, 1), group.gather_seq(v, 1)
+        s = s * group.seq_size(active_mesh())
     qg = _group_q(q, cfg.n_kv_heads)
     new_cache = None
     ck = min(s, cfg.attn_chunk_k)
@@ -166,10 +185,10 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
         k_cache = _scatter_time(cache["k"], k, idx)
         v_cache = _scatter_time(cache["v"], v, idx)
         new_cache = {"k": k_cache, "v": v_cache, "len": idx + s}
-        o = full_attention(qg, k_cache, v_cache, causal, q_off=idx)
+        o = full_attention(qg, k_cache, v_cache, causal, q_off=idx + off)
     elif cache is None:
-        o = chunked_attention(qg, k, v, causal, cfg.attn_chunk_q, ck) \
-            if chunked else full_attention(qg, k, v, causal)
+        o = chunked_attention(qg, k, v, causal, cfg.attn_chunk_q, ck, off) \
+            if chunked else full_attention(qg, k, v, causal, off)
     elif s == 1:
         idx = cache["len"]
         k_cache = _scatter_time(cache["k"], k, idx)
@@ -184,10 +203,10 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
                      "v": vf.to(cache["v"].dtype),
                      "len": torch.full((b,), s, dtype=torch.int32,
                                        device=x.device)}
-        o = chunked_attention(qg, k, v, causal, cfg.attn_chunk_q, ck) \
-            if chunked else full_attention(qg, k, v, causal)
+        o = chunked_attention(qg, k, v, causal, cfg.attn_chunk_q, ck, off) \
+            if chunked else full_attention(qg, k, v, causal, off)
 
-    o = o.reshape(b, s, cfg.n_heads * hd)
+    o = o.reshape(b, qg.shape[1], cfg.n_heads * hd)
     return p.wo(o, ctx), new_cache
 
 

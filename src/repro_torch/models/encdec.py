@@ -10,8 +10,9 @@ The reference scans both stacks; the port loops over ``enc`` and ``dec``.
 In train mode with gradients on, ``cfg.remat`` (any value but ``none``,
 as the reference's ``jax.checkpoint`` of both scan bodies) recomputes each
 encoder and decoder layer in backward (``torch.utils.checkpoint``,
-non-reentrant) with A/D metering muted; the cross-KV projections run
-outside the checkpointed bodies, as in the reference.
+non-reentrant) with A/D metering muted (``PimContext.remat_contexts``);
+the cross-KV projections run outside the checkpointed bodies, as in the
+reference.
 Every projection of a stack shares one QuantState name with no depth
 (``enc/attn/wq``, ``dec/xattn/wk``, ``frontend/frame_proj``), as the
 reference's scanned stacks do.  The serving cache is one dict::
@@ -27,7 +28,6 @@ positions start at ``len0``.  At decode, cross-attention reads the whole
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -54,8 +54,7 @@ def _run(layer, remat: bool, ctx: PimContext, *args, **kw):
     if not remat:
         return layer(*args, **kw)
     return checkpoint(layer, *args, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(),
-                                          ctx.muted()), **kw)
+                      context_fn=ctx.remat_contexts, **kw)
 
 
 class EncoderLayer(nn.Module):

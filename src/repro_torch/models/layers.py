@@ -18,6 +18,8 @@ from torch import nn
 from ..configs.base import ModelConfig, TRQConfig
 from ..core.quant_state import active_quant_state
 from ..core.trq import TRQParams, make_params
+from ..dist.group import counts_here
+from ..dist.sharding import carried
 from ..pim.backend import get_backend, record_ad_ops, zero_ops
 from ..pim.plan import run_prepared
 
@@ -73,7 +75,8 @@ class PimContext:
     def add_ops(self, ops: torch.Tensor, name: Optional[str] = None) -> None:
         if self._muted:
             return
-        self.ops = self.ops + ops
+        if counts_here():       # a replicated section counts on one rank
+            self.ops = self.ops + ops
         record_ad_ops(name, ops)
 
     @contextlib.contextmanager
@@ -83,6 +86,19 @@ class PimContext:
             yield self
         finally:
             self._muted = prev
+
+    def remat_contexts(self):
+        """``torch.utils.checkpoint``'s ``context_fn`` for a
+        rematerialised layer: nothing around the forward; around the
+        recompute, metering muted and the forward's mesh and row split
+        reinstalled (:class:`~repro_torch.dist.sharding.carried`)."""
+        state = carried()
+
+        @contextlib.contextmanager
+        def recompute():
+            with state, self.muted():
+                yield
+        return contextlib.nullcontext(), recompute()
 
 
 class PimLinear(nn.Module):
@@ -154,10 +170,25 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x, eps)
 
 
+NORM_CHUNK = 128      # the first stage of rmsnorm's sum on the card
+
+
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
+    """On the card the mean square is summed in two fixed-width stages:
+    CUDA's one-stage reduction splits the sum of a call with few rows
+    across blocks, so a row's sum (and, an ulp later, a quantizer bin)
+    would depend on how many rows its call holds, which a split sequence
+    changes.  The CPU's is the row's own either way."""
     xf = x.float()
-    n = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    sq = xf * xf
+    d = x.shape[-1]
+    if x.is_cuda and d % NORM_CHUNK == 0:
+        ms = sq.unflatten(-1, (d // NORM_CHUNK, NORM_CHUNK)).sum(-1).sum(
+            -1, keepdim=True) / d
+    else:
+        ms = torch.mean(sq, -1, keepdim=True)
+    n = xf * torch.rsqrt(ms + eps)
     return (n * scale).to(x.dtype)
 
 

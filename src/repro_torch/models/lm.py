@@ -22,8 +22,10 @@ the last position's logits; with tied embeddings the logits are an f32
 mode also returns the MoE layers' Switch loss summed in layer order (f32;
 0.0 without MoE layers).  In train mode with gradients on, ``cfg.remat``
 (``block``, ``full`` or ``names``) recomputes each layer in backward
-(``torch.utils.checkpoint``, non-reentrant) with A/D metering muted: the
-same numbers, each forward conversion counted once.
+(``torch.utils.checkpoint``, non-reentrant) with A/D metering muted and
+the forward's mesh and row split reinstalled (the recompute may run on
+autograd's device thread): the same numbers, each forward conversion
+counted once.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist import group
+from ..dist.sharding import active_mesh
 from .attention import Attention
 from .layers import (MLP, Embed, PimContext, PimLinear, RMSNorm, cdtype,
                      no_aux, pdtype)
@@ -143,7 +147,11 @@ class LM(nn.Module):
         """``embeds`` (B, F, D): patch embeddings, projected at the
         parameter dtype by ``frontend/patch_proj`` and placed before the
         tokens (the reference's ``_embed_inputs``); positions then run
-        over all F + S rows.  Returns (logits f32, new_cache or None, aux
+        over all F + S rows.  While a mesh splits the sequence
+        (``dist.group.seq_is_split``), this rank runs its block of those
+        rows (the reference's ``shard(x, "batch", "seq", None)``): train
+        mode returns its rows' logits, the serving modes every rank the
+        last position's.  Returns (logits f32, new_cache or None, aux
         f32)."""
         cfg = self.cfg
         cont = mode == "prefill_cont"
@@ -152,7 +160,8 @@ class LM(nn.Module):
             if self.frontend is None:
                 raise ValueError(f"{cfg.name} has no frontend to take "
                                  f"'embeds'")
-            fe = self.frontend["patch_proj"](embeds.to(x.dtype), ctx)
+            with group.replicated():        # every model rank's F rows
+                fe = self.frontend["patch_proj"](embeds.to(x.dtype), ctx)
             x = torch.cat([fe, x], 1)
         x = x.to(cdtype(cfg))
         b, s, _ = x.shape
@@ -165,6 +174,13 @@ class LM(nn.Module):
             else:
                 positions = torch.arange(s, dtype=torch.int32,
                                          device=x.device)[None].expand(b, s)
+        if group.seq_is_split():
+            blk = group.seq_share(active_mesh(), cfg, s)
+            if blk is None:
+                raise ValueError(f"the sequence is marked split but "
+                                 f"{cfg.name}'s {s} rows have no block on "
+                                 f"the model axis")
+            x, positions = x[:, blk], positions[:, blk]
         stacks: dict = {}
         new_len = None
         aux = no_aux(x.device)
@@ -183,8 +199,7 @@ class LM(nn.Module):
                 x, nc, a = checkpoint(
                     layer, x, ctx, positions, cache=lc, cont=cont,
                     use_reentrant=False,
-                    context_fn=lambda: (contextlib.nullcontext(),
-                                        ctx.muted()))
+                    context_fn=ctx.remat_contexts)
             else:
                 x, nc, a = layer(x, ctx, positions, cache=lc, cont=cont)
             if a is not None:
@@ -196,12 +211,15 @@ class LM(nn.Module):
                     else:
                         stacks.setdefault(key, []).append(val)
         x = self.final_norm(x, cfg.norm_eps)
-        if mode in ("decode", "prefill", "prefill_cont"):
-            x = x[:, -1:]
+        serving = mode in ("decode", "prefill", "prefill_cont")
+        if serving:
+            # the last rank's last row, on every model rank
+            x = group.gather_seq(x[:, -1:], 1)[:, -1:]
         if self.lm_head is None:
             logits = x.float() @ self.embed.tok.float().T
         else:
-            logits = self.lm_head(x, ctx).float()
+            with group.replicated() if serving else contextlib.nullcontext():
+                logits = self.lm_head(x, ctx).float()
         new_cache = None
         if cache is not None:
             new_cache = {key: torch.stack(v) for key, v in stacks.items()}

@@ -25,12 +25,13 @@ The port passes the backend name explicitly (``Runtime`` owns it);
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.trq import TRQParams, auto_range_delta
-from ..dist.group import batch_is_split, global_max, global_sum
+from ..core.trq import TRQParams
+from ..dist.group import cell_reducer, global_max, global_sum
 from .crossbar import PimConfig, fake_quant_mvm, offset_encode
 
 
@@ -110,7 +111,15 @@ class AdOpsTally:
         return float(sum(self.by_layer.values()))
 
 
-_TALLY: list = []
+class _Tallies(threading.local):
+    """The open tallies, innermost last; per thread, as ranks that share a
+    process (a threaded process group) each keep their own."""
+
+    def __init__(self):
+        self.open: list = []
+
+
+_TALLY = _Tallies()
 
 
 @contextlib.contextmanager
@@ -118,19 +127,19 @@ def ad_ops_tally():
     """Collect every layer's A/D-operation count in the dynamic extent:
     ``with ad_ops_tally() as t: rt.prefill(...); t.by_layer``."""
     t = AdOpsTally()
-    _TALLY.append(t)
+    _TALLY.open.append(t)
     try:
         yield t
     finally:
-        _TALLY.remove(t)
+        _TALLY.open.remove(t)
 
 
 def record_ad_ops(name: Optional[str], ops: torch.Tensor) -> None:
     """Add one call's ops to the innermost open tally; with none open this
     is a list test and nothing else (no tensor op, no host sync).  On a
-    mesh that splits the batch the tally records the whole batch's."""
-    if _TALLY:
-        _TALLY[-1].add(name or "<unnamed>", global_sum(ops))
+    mesh that splits the rows the tally records every rank's."""
+    if _TALLY.open:
+        _TALLY.open[-1].add(name or "<unnamed>", global_sum(ops))
 
 
 def zero_ops(device) -> torch.Tensor:
@@ -146,8 +155,8 @@ def _stable_recip(s) -> torch.Tensor:
 
 def _dynamic_scales(x, w, a_scale, w_scale, levels: float = 127.0):
     """Max-abs per-tensor scales (None -> dynamic) in the operand's dtype,
-    as the reference computes them; the activations' maximum is the whole
-    batch's on a mesh that splits it (``dist.group.global_max``)."""
+    as the reference computes them; the activations' maximum is every
+    rank's on a mesh that splits the rows (``dist.group.global_max``)."""
     if a_scale is None:
         a_scale = torch.clamp_min(global_max(torch.amax(torch.abs(x))),
                                   1e-6) / levels
@@ -181,20 +190,6 @@ def fake_quant_backend(x, w, trq, *, a_scale=None, w_scale=None,
     return PimOut(y, ops)
 
 
-def split_fit(x, w, trq: TRQParams, grid, auto_range: bool):
-    """K1 fits an auto-ranged register to the rows it is given.  While a
-    mesh splits the batch, the fit must see every rank's rows: the
-    partial sums' maximum is taken here (a plain pass, as K1's plain
-    version takes it), reduced over the data axes, and the kernel runs on
-    the fitted register.  Returns ``(trq, auto_range)`` for the launch."""
-    if not (auto_range and batch_is_split()):
-        return trq, auto_range
-    from ..kernels.trq_group_mvm.ops import psum_amax
-    vmax = global_max(psum_amax(x, w))
-    return trq.replace(delta_r1=auto_range_delta(
-        trq.delta_r1, vmax, grid, trq.n_r2 + trq.m)), False
-
-
 @register_backend("pallas")
 def pallas_backend(x, w, trq, *, a_scale=None, w_scale=None,
                    delta_grid: float = 1.0, auto_range: bool = False,
@@ -202,20 +197,22 @@ def pallas_backend(x, w, trq, *, a_scale=None, w_scale=None,
     """Inference datapath through the ``trq_group_mvm`` kernel (not
     differentiable: train with ``fake_quant``).  The kernel reads ``w`` as
     given (bf16 or f32) and, with ``auto_range``, fits ``delta_r1`` to its
-    own partial sums: one read of the weights per call."""
+    own partial sums: one read of the weights per call.  While a mesh
+    splits the rows, the fit takes every rank's: K1's split launch
+    max-reduces its pass-1 cells over the split axes before pass 2."""
     from ..kernels.trq_group_mvm import trq_group_mvm
     a_s, w_s = _dynamic_scales(x, w, a_scale, w_scale)
     grid = grid_scale(a_s, w_s, delta_grid, x.device)
-    trq, auto_range = split_fit(x, w, trq.to(x.device), grid, auto_range)
-    y, ops = trq_group_mvm(x, w, trq, grid, 1.0, with_ops=True,
-                           auto_range=auto_range)
+    y, ops = trq_group_mvm(x, w, trq.to(x.device), grid, 1.0, with_ops=True,
+                           auto_range=auto_range,
+                           reduce_cells=cell_reducer())
     return PimOut(y.to(x.dtype), ops)
 
 
 def ptq_scale(t: torch.Tensor, bits: int) -> torch.Tensor:
     """Max-abs symmetric scale of an f32 tensor for ``bits``-bit ints,
     a multiply by the reciprocal constant (the reference's chain); the
-    maximum is the whole batch's on a mesh that splits it."""
+    maximum is every rank's on a mesh that splits the rows."""
     return torch.clamp_min(global_max(torch.amax(torch.abs(t))), 1e-6) * \
         (1.0 / (2 ** (bits - 1) - 1))
 

@@ -39,7 +39,8 @@ from ..core.quant_state import quant_state_to_dict
 from ..core.trq import TRQParams
 from .backend import (PimOut, _dynamic_scales, bit_exact_run,
                       bit_exact_weights, get_backend, grid_scale,
-                      split_fit, zero_ops)
+                      zero_ops)
+from ..dist.group import cell_reducer
 from .crossbar import (PimConfig, fake_quant_mvm_grouped, group_activations,
                        group_weights)
 
@@ -271,11 +272,12 @@ def _prepared_pallas(x, lp: LayerPlan, *, a_scale=None, w_scale=None,
                                w_scale if w_scale is not None
                                else lp.w_scale)
     grid = grid_scale(a_s, w_s, lp.delta_grid, x.device)
-    trq, auto_range = split_fit(x, lp.w, lp.trq, grid, lp.auto_range)
+    trq = lp.trq
     y, ops = trq_group_mvm_2d(
         x.reshape(-1, lp.k).float().contiguous(), lp.w,
         pack_scalars(trq, grid, x.device), n_r1=trq.n_r1, n_r2=trq.n_r2,
-        m=trq.m, nu=trq.nu, mode=trq.mode, auto_range=auto_range)
+        m=trq.m, nu=trq.nu, mode=trq.mode, auto_range=lp.auto_range,
+        reduce_cells=cell_reducer())
     return PimOut(y.reshape(*x.shape[:-1], lp.n).to(x.dtype), ops)
 
 

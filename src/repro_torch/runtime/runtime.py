@@ -15,11 +15,13 @@ On a mesh (``compile(..., mesh=...)`` or an active ``use_mesh``) every
 parameter is a DTensor placed by ``param_pspecs`` and each layer gathers
 its own for its forward (``dist.sharding.gather_hooks``).  Every rank runs
 the same program: an entry point takes the whole batch, the data axes
-split its rows when they divide it (``dist.group``), the dynamic scales,
-the auto-range maximum and the A/D count are reduced over them, and the
-logits and the cache come back whole, so every rank returns what one
-device would.  A Runtime whose parameters are on the ``meta`` device is
-*abstract*: its steps run on no data (the dry run's cells).
+split its rows when they divide it, and under ``fsdp_cp`` the model axis
+splits the sequence when it divides it (``dist.group``); the dynamic
+scales, the auto-range maximum and the A/D count are reduced over the
+split axes, and the logits and the cache come back whole, so every rank
+returns what one device would.  A Runtime whose parameters are on the
+``meta`` device is *abstract*: its steps run on no data (the dry run's
+cells).
 
 Training (``opt_init``, ``train_step``) runs on the differentiable
 backends (``exact``, and ``fake_quant`` through its straight-through
@@ -108,16 +110,16 @@ class Runtime:
                 f")")
 
     @contextlib.contextmanager
-    def _ambient(self, split: bool = False):
+    def _ambient(self, split: tuple = ()):
         """The one place the Runtime installs ambient state: its mesh (and
-        whether the forward holds this rank's share of the batch), then its
+        the mesh axes over which the forward's rows are split), then its
         backend, QuantState and CrossbarModel, force-installed (``None``
         included), so a ``use_backend``/``use_quant_state`` a caller nests
         around an entry point never reaches it."""
         with contextlib.ExitStack() as stack:
             if self.mesh is not None:
                 stack.enter_context(sharding.use_mesh(self.mesh))
-            stack.enter_context(group.split_batch(split))
+            stack.enter_context(group.split_rows(split))
             prev = (backend_mod._ACTIVE["backend"], qs_mod._ACTIVE["qs"],
                     noise_mod._ACTIVE["cm"])
             backend_mod._ACTIVE["backend"] = self.backend
@@ -132,6 +134,24 @@ class Runtime:
     def _share(self, batch: int) -> Optional[slice]:
         """This rank's rows of a ``batch``-row call, or None for all."""
         return group.batch_share(self.mesh, batch)
+
+    def _split(self, batch: int, length: int):
+        """``(share, axes)``: this rank's rows of a ``batch``-row call (or
+        None) and the mesh axes that split the forward's rows: the data
+        axes with a share, ``'model'`` when the layout splits a
+        ``length``-row sequence (:func:`dist.group.seq_share`)."""
+        share = self._share(batch)
+        axes = group.dp_axes(self.mesh) if share is not None else ()
+        if group.seq_share(self.mesh, self.cfg, length) is not None:
+            axes += ("model",)
+        return share, axes
+
+    def _length(self, tokens, embeds=None) -> int:
+        """The decoder sequence of a call: a patch frontend's F rows
+        prefix the S tokens."""
+        f = embeds.shape[1] if embeds is not None and \
+            self.cfg.frontend == "patch" else 0
+        return f + tokens.shape[1]
 
     def _ctx(self) -> PimContext:
         # the Runtime's device model wins over an ambient one, None included
@@ -150,7 +170,10 @@ class Runtime:
         """The model forward of an entry point.  On a mesh whose data axes
         split the batch, this rank runs its rows (``cache_is_share``: the
         cache holds only those already) and the logits, and unless
-        ``whole_cache`` is False the cache, come back whole."""
+        ``whole_cache`` is False the cache, come back whole.  A sequence
+        split on the model axis runs this rank's block of the rows; the
+        model returns the cache whole and the serving logits on every
+        rank, and the train-mode logits are gathered here."""
         ctx = self._ctx()
         kw = {}
         if positions is not None:
@@ -167,19 +190,21 @@ class Runtime:
                     f"takes 'embeds')")
             kw.update(self._modality(extra))
         tokens = self._tensor(tokens)
-        share = self._share(len(tokens))
+        share, axes = self._split(len(tokens),
+                                  self._length(tokens, kw.get("embeds")))
         if share is not None:
             tokens = tokens[share]
             kw = {k: v[share] for k, v in kw.items()}
             if cache is not None and not cache_is_share:
                 cache = {k: v[share] if v.ndim == 1 else v[:, share]
                          for k, v in cache.items()}
-        with torch.no_grad(), self._ambient(split=share is not None):
+        with torch.no_grad(), self._ambient(axes):
             logits, new_cache, aux = self.model(tokens, ctx, cache=cache,
                                                 mode=mode, **kw)
-            ops = ctx.ops
+            ops = group.global_sum(ctx.ops)
+            if "model" in axes and mode == "train":
+                logits = group.gather_rows(logits, 1, self.mesh, ("model",))
             if share is not None:
-                ops = group.global_sum(ops)
                 logits = group.gather_rows(logits, 0, self.mesh)
                 if new_cache is not None and whole_cache:
                     new_cache = {k: group.gather_rows(
@@ -364,20 +389,21 @@ class Runtime:
                         live.copy_(params[name])
         batch = {k: self._tensor(v, torch.float32 if k == "embeds"
                                  else torch.int32) for k, v in batch.items()}
-        share = self._share(len(batch["tokens"]))
+        length = self._length(batch["tokens"], batch.get("embeds"))
+        share, axes = self._split(len(batch["tokens"]), length)
         shards = 1
         if share is not None:
             batch = {k: v[share] for k, v in batch.items()}
             shards = group.dp_size(self.mesh)
+        if "model" in axes:     # the model takes its block after the embed
+            batch["labels"] = batch["labels"][
+                :, group.seq_share(self.mesh, self.cfg, length)]
         ctx = self._step_ctx = self._ctx()
         try:
-            with self._ambient(split=share is not None):
+            with self._ambient(axes):
                 _, opt_state, metrics = step_fn(self.params, opt_state,
                                                 batch, step, shards=shards)
-                ops = ctx.ops
-                if share is not None:
-                    ops = group.global_sum(ops)
-                    metrics["loss"] = group.global_sum(metrics["loss"])
+                ops = group.global_sum(ctx.ops)
         finally:
             self._step_ctx = None
         metrics["ad_ops"] = ops

@@ -19,25 +19,48 @@ import torch
 
 from ..configs.base import ModelConfig, TrainConfig
 from ..convert import ref_groups, stacked
+from ..dist import group
 from ..dist.sharding import P, param_pspecs, use_mesh, zero1_upgrade
 from .optimizer import lr_schedule, make_optimizer
 
 AUX_LOSS_WEIGHT = 0.01
 
 
-def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-            aux) -> torch.Tensor:
-    """Token-mean cross entropy in f32 plus ``0.01 * aux`` (the MoE Switch
-    loss), the reference's steps: f32 logits, a detached max, log-sum-exp,
-    the gold logit, the mean.  The reference takes the gold logit as a
-    masked sum over the vocabulary (one term is nonzero); a gather gives
-    the same value and gradient without the (B, S, V) mask."""
+def token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's cross entropy in f32, the reference's steps: f32
+    logits, a detached max, log-sum-exp, the gold logit.  The reference
+    takes the gold logit as a masked sum over the vocabulary (one term is
+    nonzero); a gather gives the same value and gradient without the
+    (B, S, V) mask."""
     logits = logits.float()
     m = torch.amax(logits, -1, keepdim=True).detach()
     logz = torch.log(torch.sum(torch.exp(logits - m), -1)) + m[..., 0]
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    ce = torch.mean(logz - gold)
-    return ce + AUX_LOSS_WEIGHT * aux
+    return logz - gold
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            aux) -> torch.Tensor:
+    """Token-mean cross entropy plus ``0.01 * aux`` (the MoE Switch
+    loss)."""
+    return torch.mean(token_ce(logits, labels)) + AUX_LOSS_WEIGHT * aux
+
+
+def split_lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux):
+    """:func:`lm_loss` of a forward that holds this rank's block of the
+    tokens (``dist.group.split_rows``): ``(loss, value)``.  ``loss``
+    carries the gradient, the rank's token sum over every rank's token
+    count (its terms' gradient is one device's), plus its Switch loss'
+    share; ``value`` is the loss one device computes, the token mean of
+    every rank's terms gathered whole, plus the ranks' mean Switch
+    loss."""
+    terms = token_ce(logits, labels)
+    ranks = group.split_ranks()
+    loss = terms.sum() / (terms.numel() * ranks) + \
+        AUX_LOSS_WEIGHT * aux / ranks
+    value = torch.mean(group.gather_tokens(terms.detach())) + \
+        AUX_LOSS_WEIGHT * (group.global_sum(aux.detach()) / ranks)
+    return loss, value
 
 
 def make_train_step(apply_fn: Callable, cfg: ModelConfig, tc: TrainConfig):
@@ -51,14 +74,15 @@ def make_train_step(apply_fn: Callable, cfg: ModelConfig, tc: TrainConfig):
     opt_init, opt_update = make_optimizer(tc, cfg)
     lr_fn = lr_schedule(tc)
 
-    def loss_and_grads(tensors, batch, shards: int):
+    def loss_and_grads(tensors, batch):
         logits, aux = apply_fn(batch)
-        loss = lm_loss(logits, batch["labels"], aux)
-        if shards > 1:
-            loss = loss / shards
+        if group.rows_split():
+            loss, value = split_lm_loss(logits, batch["labels"], aux)
+        else:
+            loss = value = lm_loss(logits, batch["labels"], aux)
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(t) if g is None else g
-                               for t, g in zip(tensors, grads)]
+        return value.detach(), [torch.zeros_like(t) if g is None else g
+                                for t, g in zip(tensors, grads)]
 
     def grads_of(params: dict, batch: dict, shards: int):
         names = list(params)
@@ -73,17 +97,19 @@ def make_train_step(apply_fn: Callable, cfg: ModelConfig, tc: TrainConfig):
             for i in range(nb):
                 sl = slice(i * micro, (i + 1) * micro)
                 mb = {k: v[sl] for k, v in batch.items()}
-                l_i, g_i = loss_and_grads(tensors, mb, shards)
+                l_i, g_i = loss_and_grads(tensors, mb)
                 loss = loss + l_i / nb
                 acc = [a + g / nb for a, g in zip(acc, g_i)]
             grads = acc
         else:
-            loss, grads = loss_and_grads(tensors, batch, shards)
+            loss, grads = loss_and_grads(tensors, batch)
         return loss, dict(zip(names, grads))
 
     def train_step(params, opt_state, batch, step, shards: int = 1):
-        """``shards``: the ranks the batch rows are split over; each
-        rank's loss is its share of the batch mean."""
+        """``shards``: the ranks the batch rows are split over (a
+        microbatch is ``tc.microbatch // shards`` of a rank's rows).
+        While the rows are split the loss is every rank's token mean
+        (:func:`split_lm_loss`)."""
         loss, grads = grads_of(params, batch, shards)
         lr = lr_fn(step).to(loss.device)
         params, opt_state, gnorm = opt_update(grads, opt_state, params, lr)

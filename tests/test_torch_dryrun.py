@@ -128,7 +128,9 @@ def test_meter_counts_a_storage_once_and_releases_it():
 def test_serve_cell_with_a_prepared_plan_runs_k1_plain_on_meta(fake_world):
     """``prepare_plan=True`` on ``pallas``: the plan is programmed from the
     gathered meta weights (replicated) and each projection reaches K1's
-    plain version through the wrapper's explicit meta check."""
+    plain version through the wrapper's explicit meta check: the data
+    axes split the 128 decode rows, so each auto-ranged projection runs
+    the split launch, whose pass 1 is ``trq_group_mvm_psums_ref``."""
     from repro_torch.kernels.trq_group_mvm import ops as k1_ops
     from repro_torch.launch.mesh import make_production_mesh
     cfg = steps.depth_variant(get_config("llama3.2-3b").replace(
@@ -139,13 +141,16 @@ def test_serve_cell_with_a_prepared_plan_runs_k1_plain_on_meta(fake_world):
     assert plan is not None and len(plan) == 7          # one layer's
     assert cell.in_specs[1] == "replicated"
     calls = []
-    orig = k1_ops.trq_group_mvm_ref
-    k1_ops.trq_group_mvm_ref = lambda *a, **k: calls.append(1) or orig(
-        *a, **k)
+    origs = {name: getattr(k1_ops, name) for name in (
+        "trq_group_mvm_ref", "trq_group_mvm_psums_ref")}
+    for name, orig in origs.items():
+        setattr(k1_ops, name, lambda *a, _f=orig, _n=name, **k: calls.append(
+            _n) or _f(*a, **k))
     try:
         tokens, cache = cell.run()
     finally:
-        k1_ops.trq_group_mvm_ref = orig
-    assert len(calls) == 7
+        for name, orig in origs.items():
+            setattr(k1_ops, name, orig)
+    assert calls == ["trq_group_mvm_psums_ref"] * 7
     assert tokens.device.type == "meta" and tuple(tokens.shape) == (128,)
     assert cache["k"].shape[1] == 128 // 16              # this rank's rows
