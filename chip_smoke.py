@@ -423,15 +423,43 @@ which fails the run on any error:
            logits, cache and A/D ops bitwise the mesh-less ones, the
            trace's tokens and per-request A/D ops too, K1's split
            entries launched 7 x layers x 2 a prefill of the trace and
-           its plain versions never; then a split prefill of
-           deepseek-7b and internvl2-76b (with its 256 patch rows) at 2
-           layers each, bitwise their mesh-less ones.
+           its plain versions never; each decode step of the trace
+           holds the rank's 4 of llama's 8 KV heads (its pools half the
+           whole pools' bytes), and a decode step's host seconds and
+           collectives are printed on the K/V share and on a whole
+           cache; then a split prefill of deepseek-7b and internvl2-76b
+           (with its 256 patch rows) at 2 layers each, bitwise their
+           mesh-less ones, and whisper-medium at 2 + 2 layers on 8 of
+           its 16 KV heads a rank (self- and cross-KV): tokens and
+           per-request A/D ops bitwise the mesh-less ones.  Last, four
+           threaded ranks on (1, 4) run glm4-9b at 2 layers (2 KV heads:
+           each rank holds 32 of every head's 128 dims, and the scores
+           are all-reduced): every layer's attention output, on the
+           mesh-less decode step's inputs in f32, within rtol = atol =
+           ``ATTN_BAR`` (the gap printed), and phase 3's trace with the
+           mesh-less tokens and per-request A/D ops.
+
+2b. decode_attn  the one-row attention kernel's two entries (scores;
+           masked softmax and values) against their plain PyTorch
+           versions at every decode shape the serving phases give them
+           (self-attention with lengths and probabilities rounded to the
+           bf16 cache, whisper's cross-attention without), whole heads and
+           phase 19's shares: scores within ``DECODE_ATTN_SCORE_TOL`` and
+           outputs within ``DECODE_ATTN_CROSS_TOL`` (f32 sums in another
+           order), plus, where the probabilities are rounded to bf16, one
+           bf16 step of the largest probability times the largest |v| (a
+           probability rounded to the other side of a step); each entry on a share of the KV heads bitwise those
+           heads of the whole call; timed at phase 3's shape beside its
+           bound, the plain version and ``scaled_dot_product_attention``.
 
 Kernel launch counts are reset just before each main path (phases 3, 11,
-12, 13, 14, 16, 17, 18 and 19 for K1, phase 19's two ranks for K1's split
-entries, phases 7, 11, 12, 13, 14 and 16 for K3, the
-calibration of phase 8 for both of K2's entries, phase 15 for all three)
-and read just after; launches that compare a kernel with its plain version do not count.
+12, 13, 14, 16, 17, 18 and 19 for K1, phase 19's two and four ranks for
+K1's split entries, phases 7, 11, 12, 13, 14 and 16 for K3, the
+calibration of phase 8 for both of K2's entries, phase 15 for all three,
+phases 3 and 19's two ranks for decode_attn's two entries, one a
+self-attention layer and a decode step, and one more a cross-attention
+layer) and read just after; launches that compare a kernel with its
+plain version do not count.
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -637,6 +665,28 @@ K3_REGS = [("default", dict(delta_r1=1.0, n_r1=6, n_r2=6, m=4), 1.0),
                                bias=1.0), 0.25),
            ("lossless", None, 1.0)]
 TRACE_BATCH = 4                    # the engine's max batch in the trace
+# phase 2b: the decode shapes the serving phases give decode_attn: (where,
+# B, cache rows, KV heads, G, hd, self-attention); the engines' caches are
+# max_len rows (256; whisper's 1,504, its cross-KV's too)
+DECODE_ATTN_SHAPES = (
+    ("llama3.2-3b", 4, 256, 8, 3, 128, True),
+    ("llama3.2-3b, 4 of 8 KV heads", 4, 256, 4, 3, 128, True),
+    ("whisper-medium", 4, 1504, 16, 1, 64, True),
+    ("whisper-medium cross", 4, 1504, 16, 1, 64, False),
+    ("whisper-medium, 8 of 16 KV heads", 4, 1504, 8, 1, 64, True),
+    ("whisper-medium cross, 8 of 16 KV heads", 4, 1504, 8, 1, 64, False),
+    ("granite-moe-3b-a800m", 4, 256, 8, 3, 64, True),
+    ("jamba-v0.1-52b", 4, 256, 8, 4, 128, True),
+    ("glm4-9b", 4, 256, 2, 16, 128, True),
+    ("glm4-9b, 32 of 128 dims", 4, 256, 2, 16, 32, True),
+    ("deepseek-7b", 4, 256, 32, 1, 128, True),
+    ("deepseek-67b", 4, 256, 8, 8, 128, True),
+)
+DECODE_ATTN_SCORE_TOL = 1e-4       # |scores| about 1: f32 sums of 128
+DECODE_ATTN_CROSS_TOL = 1e-5       # outputs: f32 sums in another order,
+DECODE_ATTN_STEP = 2.0 ** -8       # plus, where the probabilities are
+                                   # rounded to bf16, one step of the
+                                   # largest times the largest |v|
 SLICES = 8 * 8                     # k_i x k_w bit-line conversions per group
 K3_MS = (1, 4, 16, 17, 64)         # phase 6: rows checked (every row tile)
 PLAIN_BYTES = 2 ** 31              # phase 6: the plain version in column
@@ -746,6 +796,134 @@ def bound(m: int, k: int, n: int, w_bytes: int = 2):
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * m * k * n / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: decode_attn against its plain version
+# ---------------------------------------------------------------------------
+
+def decode_attn_operands(torch, gen, b, n, kv, g, hd, dev):
+    """Decode-step operands: q (B, 1, KV, G, hd) f32 scaled as the model
+    scales it and rounded to the bf16 cache, bf16 K/V caches of ``n``
+    rows, and lengths drawn in [1, n]."""
+    q = (torch.randn(b, 1, kv, g, hd, generator=gen, device=dev)
+         * hd ** -0.5).to(torch.bfloat16).float()
+    k, v = (torch.randn(b, n, kv, hd, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    lens = torch.randint(1, n + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return q, k, v, lens
+
+
+def decode_attn_phase(torch, rec: dict, device: str = "cuda") -> None:
+    """Both entries against their plain versions at ``DECODE_ATTN_SHAPES``,
+    each entry on each half of the KV heads bitwise those heads of the
+    whole call, and the pair timed at phase 3's shape (the first)."""
+    from repro_torch.kernels.decode_attn import kernel as ka
+    from repro_torch.kernels.decode_attn.ref import (attn_scores_ref,
+                                                     attn_values_ref)
+    gen = torch.Generator(device=device).manual_seed(29)
+    for where, b, n, kv, g, hd, self_attn in DECODE_ATTN_SHAPES:
+        q, k, v, lens = decode_attn_operands(torch, gen, b, n, kv, g, hd,
+                                             device)
+        lens = lens if self_attn else None
+        s = ka.attn_scores_cuda(q, k)
+        o = ka.attn_values_cuda(s, v, lens, self_attn)
+        s_r = attn_scores_ref(q, k)
+        o_r = attn_values_ref(s_r, v, lens, self_attn)
+        o_p = ka.attn_values_cuda(s_r, v, lens, self_attn)
+        torch.cuda.synchronize()
+        err_s = float((s - s_r).abs().max())
+        err_o = float((o - o_r).abs().max())
+        tol = DECODE_ATTN_CROSS_TOL
+        if self_attn:           # one bf16 step of the largest probability
+            valid = torch.arange(n, device=device)[None, :] < lens[:, None]
+            a_max = float(torch.softmax(torch.where(
+                valid[:, None, None, None], s_r, -1e30), -1).max())
+            tol += DECODE_ATTN_STEP * a_max * float(v.abs().max())
+        rec["max_abs_err"] = max(rec["max_abs_err"], err_o)
+        if err_s > DECODE_ATTN_SCORE_TOL or err_o > tol or \
+                float((o_p - o_r).abs().max()) > tol:
+            raise AssertionError(f"decode_attn differs from its plain "
+                                 f"version at {where}: scores {err_s:.3e}, "
+                                 f"output {err_o:.3e} (bars "
+                                 f"{DECODE_ATTN_SCORE_TOL}, {tol:.3e})")
+        h = kv // 2
+        for i in range(2):
+            c = (slice(None),) * 2 + (slice(i * h, (i + 1) * h),)
+            part = ka.attn_scores_cuda(q[c], k[c])
+            if not torch.equal(part, s[:, c[2]]) or not torch.equal(
+                    ka.attn_values_cuda(part, v[c], lens, self_attn),
+                    o[c]):
+                raise AssertionError(f"decode_attn on half of the KV heads "
+                                     f"at {where} is not those heads of the "
+                                     f"whole call")
+        rec["shapes"].append(dict(where=where, shape=[b, n, kv, g, hd],
+                                  max_abs_err=err_o, scores_err=err_s))
+        log(f"  {where} (B, S, KV, G, hd) {(b, n, kv, g, hd)}: scores "
+            f"within {err_s:.2e}, output within {err_o:.2e} of the plain "
+            f"version; each half of the KV heads bitwise")
+
+    where, b, n, kv, g, hd, _ = DECODE_ATTN_SHAPES[0]
+    q, k, v, lens = decode_attn_operands(torch, gen, b, n, kv, g, hd, device)
+    flush = torch.empty(2 * L2_BYTES // 4, device=device)
+    s = ka.attn_scores_cuda(q, k)
+
+    def pair():
+        return ka.attn_values_cuda(ka.attn_scores_cuda(q, k), v, lens, True)
+
+    def plain():
+        return attn_values_ref(attn_scores_ref(q, k), v, lens, True)
+    ms = device_ms(torch, pair, 20, flush)
+    per_call = call_ms(torch, pair, 20, flush)
+    plain_ms = device_ms(torch, plain, 20, flush)
+    entry_ms = dict(scores=device_ms(torch, lambda: ka.attn_scores_cuda(
+        q, k), 20, flush), values=device_ms(
+        torch, lambda: ka.attn_values_cuda(s, v, lens, True), 20, flush))
+    # the library's one call on the same inputs: heads first, the mask of
+    # each row's valid keys, the KV heads shared by their G query heads
+    import torch.nn.functional as F
+    qh = q[:, 0].reshape(b, kv * g, 1, hd).to(torch.bfloat16)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(n, device=device)[None, :] < lens[:, None])[
+        :, None, None, :]
+    try:
+        F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                       enable_gqa=True)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+    except TypeError:                  # a release without enable_gqa
+        kh, vh = (t.repeat_interleave(g, 1) for t in (kh, vh))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask)
+    library_ms = device_ms(torch, lib, 20, flush)
+    rows = int(lens.sum())
+    byts = 4 * b * kv * g * hd * 2 + 2 * 2 * rows * kv * hd + 4 * b
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * rows * kv * g * hd / F32_FLOP_PER_S * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                           "operations")
+    rec.update(shape=[b, n, kv, g, hd], ms=ms, call_ms=per_call,
+               plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+               library_ms=library_ms)
+    for name in ("scores", "values"):
+        rec["entries"][name]["ms"] = entry_ms[name]
+    log(f"  {where} at {(b, n, kv, g, hd)} ({rows} valid keys): {ms:.4f} ms "
+        f"on the device for both entries (scores {entry_ms['scores']:.4f}, "
+        f"values {entry_ms['values']:.4f}), {per_call:.4f} ms per call; "
+        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms; bound {bnd:.4f} ms by {by}")
+
+
+def decode_attn_counts() -> tuple:
+    """decode_attn's (scores, values) launches so far."""
+    from repro_torch.kernels.decode_attn import kernel as ka
+    return ka.SCORES_LAUNCHES, ka.VALUES_LAUNCHES
+
+
+def zero_decode_attn() -> None:
+    from repro_torch.kernels.decode_attn import kernel as ka
+    ka.SCORES_LAUNCHES = ka.VALUES_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1121,10 +1299,10 @@ def f64_partial_sums(torch):
         crossbar._group_psums = orig
 
 
-def trace_prompts(cfg):
+def trace_prompts(cfg, seed: int = 0):
     """8 prompts: a shared 48-token prefix plus a 16-token tail each."""
     import numpy as np
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     prefix = rng.integers(0, cfg.vocab_size, 48)
     return [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 16)])
             for _ in range(8)]
@@ -1152,6 +1330,7 @@ def run_trace(torch, rt, cfg, counter, kname: str) -> dict:
                          block_size=16)
     prompts = trace_prompts(cfg)
     counter.LAUNCHES = 0
+    zero_decode_attn()
     calls0 = rt.forward_calls
     t0 = time.perf_counter()
     for p in prompts:
@@ -1160,6 +1339,7 @@ def run_trace(torch, rt, cfg, counter, kname: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counter.LAUNCHES
+    attn = decode_attn_counts()
     calls = rt.forward_calls - calls0
 
     st = engine.stats()
@@ -1178,6 +1358,12 @@ def run_trace(torch, rt, cfg, counter, kname: str) -> dict:
     if launches != want_launches or calls == 0:
         raise AssertionError(f"{kname} launched {launches} times for "
                              f"{calls} forwards; expected {want_launches}")
+    # one prefill a request, every other forward a decode step
+    want_attn = cfg.n_layers * (calls - len(done))
+    if attn != (want_attn, want_attn):
+        raise AssertionError(f"decode_attn launched {attn} times (scores, "
+                             f"values) for {calls - len(done)} decode "
+                             f"steps; expected {want_attn} each")
     if len(done) != 8 or any(len(r.generated) != 16 or not all(
             0 <= t < cfg.vocab_size for t in r.generated) for r in done):
         raise AssertionError("engine did not return 16 in-vocab tokens for "
@@ -1191,8 +1377,8 @@ def run_trace(torch, rt, cfg, counter, kname: str) -> dict:
     return dict(tokens_per_s=st["tokens_per_s"],
                 mean_ttft_ms=1e3 * st["mean_ttft_s"],
                 total_ad_ops=st["total_ad_ops"], forwards=calls,
-                launches=launches, wall_s=wall, rows=rows,
-                tokens=[list(r.generated) for r in
+                launches=launches, attn_launches=attn[0], wall_s=wall,
+                rows=rows, tokens=[list(r.generated) for r in
                         sorted(done, key=lambda r: r.uid)],
                 request_ops=[r.ad_ops for r in
                              sorted(done, key=lambda r: r.uid)])
@@ -1410,7 +1596,8 @@ def compile_pallas(torch, cfg, device: str = "cuda"):
     return rt, gib
 
 
-def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
+def serve_phase(torch, rec: dict, cfg, device: str = "cuda",
+                attn_rec: dict = None) -> dict:
     from repro_torch.kernels.trq_group_mvm import kernel as k1
 
     t = cfg.trq
@@ -1419,6 +1606,8 @@ def serve_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
 
     run = run_trace(torch, rt, cfg, k1, "K1")
     rec["launches_by_path"][cfg.name] = run["launches"]
+    if attn_rec is not None:
+        attn_rec["launches_by_path"][cfg.name] = run["attn_launches"]
     # closed form of the op total: with n_r1 == n_r2 every conversion costs
     # nu + n_r = 7 ops
     want = 7 * cfg.n_layers * conversions_per_token(cfg) * run["rows"]
@@ -4522,6 +4711,17 @@ CP_RUN_S = 600                     # phase 19: the two ranks' time limit
 # (arch, layers): d = 4096 in 32-row blocks, d = 8192 with internvl2's 256
 # patch rows before the tokens (160-row blocks)
 CP_WIDE = (("deepseek-7b", 2), ("internvl2-76b", 2))
+# phase 19, the decode layout: each model rank keeps and attends its share
+# of the KV cache (KV heads when they divide the axis, else the head dim)
+HEADS_WHISPER_LAYERS = 2           # whisper-medium's encoder and decoder
+HEADS_WHISPER_NEW = 8              # its new tokens a request
+HEADS_DIM = ("glm4-9b", 2, 4)      # the head-dim branch: arch, layers, ranks
+HEADS_DECODE_REPS = 3              # decode steps timed each way
+ATTN_BAR = 1e-6                    # the head-dim branch's f32 rtol and atol
+HEADS_DIM_SEED = 0                 # its trace's prompts, and the trace's
+HEADS_DIM_TRACE = (4, 4)           # requests and new tokens each: inputs
+                                   # whose trace crosses no rounding step
+HEADS_RUN_S = 600                  # the four ranks' time limit
 
 
 @contextlib.contextmanager
@@ -4547,6 +4747,202 @@ def plain_k1_calls():
     finally:
         for n, fn in saved.items():
             setattr(k1ops, n, fn)
+
+
+def threaded_ranks(torch, n: int, rank_main, timeout: float,
+                   device: str = "cuda") -> list:
+    """Run ``rank_main(r, mesh, gate)`` for each of ``n`` ranks that share
+    the card as threads of this process (torch's threaded process group;
+    NCCL takes one rank a device) on a (1, ``n``) mesh, ``gate`` a barrier
+    of the ``n``; returns their results, with K1's plain versions counted
+    (:func:`plain_k1_calls`: 0 is required).  Fails if a rank raises or
+    does not end within ``timeout`` seconds."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
+    count_collectives(torch)
+    out: list = [None] * n
+    errors: list = []
+    gate = threading.Barrier(n, timeout=timeout)
+    store = dist.HashStore()
+
+    def main(r: int) -> None:
+        # the group ends with the threaded world (reset and uninstalled
+        # below): some torch releases' destroy_process_group reads state
+        # that world lacks
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=n,
+                                    store=store)
+            mesh = DeviceMesh(device, torch.arange(n).reshape(1, n),
+                              mesh_dim_names=("data", "model"))
+            out[r] = rank_main(r, mesh, gate)
+        except BaseException as e:             # the other ranks must stop
+            errors.append(f"rank {r}: {traceback.format_exc()}")
+            gate.abort()
+            ProcessLocalGroup.exception_handle(e)
+
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _install_threaded_pg()
+    try:
+        with plain_k1_calls() as plain:
+            threads = [threading.Thread(target=main, args=(r,), daemon=True)
+                       for r in range(n)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout)
+    finally:
+        ProcessLocalGroup.reset()
+        _uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError(f"the {n} ranks did not finish in {timeout} s")
+    if errors:
+        raise AssertionError("a rank failed:\n" + "\n".join(errors))
+    if plain["calls"]:
+        raise AssertionError(f"K1's plain version ran {plain['calls']} times "
+                             f"on the card's main path")
+    return out
+
+
+_COUNTING = None                   # per thread: the open collective count
+
+
+def count_collectives(torch) -> None:
+    """Wrap ``torch.distributed``'s collectives and ``dist.sharding.full``
+    (a parameter's gather, before each layer) once, so that
+    :func:`collectives` can count what a thread issues: the threaded
+    process group runs ``dist.all_gather`` and its kind in Python, past
+    the dispatcher, while DTensor's functional collectives pass it."""
+    global _COUNTING
+    if _COUNTING is not None:
+        return
+    import threading
+
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    _COUNTING = threading.local()
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            _bump(name)
+            return fn(*a, **k)
+        return call
+    for name in ("all_gather", "all_reduce", "all_gather_into_tensor",
+                 "reduce_scatter_tensor", "all_to_all_single", "broadcast"):
+        setattr(dist, name, wrap(name, getattr(dist, name)))
+    full = sharding.full
+
+    def counted_full(t):
+        _COUNTING.depth = getattr(_COUNTING, "depth", 0) + 1
+        try:
+            return full(t)
+        finally:
+            _COUNTING.depth -= 1
+    sharding.full = counted_full
+
+
+def _bump(key: str) -> None:
+    """Count one collective in this thread's open :func:`collectives`."""
+    counts = getattr(_COUNTING, "counts", None)
+    if counts is not None:
+        key = "param" if getattr(_COUNTING, "depth", 0) else key
+        counts[key] = counts.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def collectives(torch):
+    """Count the collectives this thread issues in the extent, by name:
+    ``torch.distributed``'s and DTensor's functional ones, those inside a
+    parameter's gather as ``param`` (:func:`count_collectives` first)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    count_collectives(torch)
+    counts: dict = {}
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "_c10d_functional" and \
+                    not func.__name__.startswith("wait_tensor"):
+                _bump(func.__name__.split(".")[0])
+            return func(*args, **(kwargs or {}))
+    _COUNTING.counts = counts
+    try:
+        with Mode():
+            yield counts
+    finally:
+        _COUNTING.counts = None
+
+
+def pool_bytes(engine) -> tuple:
+    """(bytes this rank's pools hold, bytes of the whole pools)."""
+    pools = engine.kv.pools.values()
+    return (sum(p.to_local().numel() * p.element_size() for p in pools),
+            sum(p.numel() * p.element_size() for p in pools))
+
+
+def decode_readings(torch, rt, cfg) -> dict:
+    """One batch-4 decode step against a 256-row cache (the first four
+    trace prompts prefilled): its host seconds (the median of
+    ``HEADS_DECODE_REPS``, between synchronisations) and the collectives
+    it issues, on the K/V share (``kv_share=True``, as the engine runs
+    it) and on a whole cache (``Runtime.decode``'s contract: every rank
+    attends whole heads)."""
+    import numpy as np
+    from repro_torch.dist import group
+    from repro_torch.models.registry import model_module
+    toks = np.stack(trace_prompts(cfg)[:TRACE_BATCH]).astype(np.int32)
+    (last, cache), _ = rt.prefill(toks, max_len=256)
+    nxt = torch.argmax(last, -1)[:, None].to(torch.int32)
+    share = group.head_share(rt.mesh, cfg)
+    paged = model_module(cfg).paged_keys(cfg)
+    cut = {k: share.keys(v) if k in paged else v for k, v in cache.items()}
+    out = {}
+    for name, fn in (("share", lambda: rt.decode(nxt, cut, kv_share=True)),
+                     ("whole", lambda: rt.decode(nxt, cache))):
+        with collectives(torch) as counts:
+            fn()
+        torch.cuda.synchronize()
+        out[name] = dict(collectives=counts, host_ms=wall_ms(
+            torch, fn, HEADS_DECODE_REPS))
+    return out
+
+
+def engine_trace(torch, rt, cfg, seed: int = 0, requests: int = 8,
+                 new: int = 16) -> dict:
+    """Phase 3's trace (the first ``requests`` of :func:`trace_prompts`
+    from ``seed``, ``new`` tokens each, max batch 4) through the paged
+    engine: tokens, per-request A/D ops, the pools' bytes."""
+    from repro_torch.serve import ServeEngine
+    engine = ServeEngine(rt, max_batch=TRACE_BATCH, max_len=256,
+                         block_size=16)
+    for prompt in trace_prompts(cfg, seed)[:requests]:
+        engine.submit(prompt, max_new_tokens=new)
+    done = sorted(engine.run(), key=lambda q: q.uid)
+    torch.cuda.synchronize()
+    return dict(tokens=[list(q.generated) for q in done],
+                request_ops=[q.ad_ops for q in done],
+                pools=pool_bytes(engine) if rt.mesh is not None else None)
+
+
+def heads_whisper_trace(torch, rt, frames) -> dict:
+    """Phase 12's prompt and frames, ``HEADS_WHISPER_NEW`` tokens for each
+    of ``WHISPER_BATCH`` requests through the paged engine: tokens,
+    per-request A/D ops, the pools' bytes."""
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(rt, max_batch=WHISPER_BATCH, max_len=WHISPER_MAX_LEN,
+                      block_size=16, extra_inputs=frame_feed(frames))
+    for _ in range(WHISPER_BATCH):
+        eng.submit(np.array(WHISPER_PROMPT), max_new_tokens=HEADS_WHISPER_NEW)
+    done = sorted(eng.run(), key=lambda q: q.uid)
+    torch.cuda.synchronize()
+    return dict(tokens=[list(q.generated) for q in done],
+                request_ops=[q.ad_ops for q in done],
+                pools=pool_bytes(eng) if rt.mesh is not None else None)
 
 
 def cp_prefill(torch, rt, cfg, device: str = "cuda") -> dict:
@@ -4584,31 +4980,36 @@ def cp_wide_refs(torch, device: str) -> dict:
     return refs
 
 
-def cp_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
-    """Phase 19, the context-parallel layout: two ranks share the card as
-    two threads of this process (torch's threaded process group; NCCL
-    takes one rank a device) on a (1, 2) mesh.  ``cfg`` (llama3.2-3b on
-    ``pallas``) is cut to ``CP_LAYERS`` layers, and a mesh-less Runtime
-    of it gives the reference: a 64-token prefill and phase 3's trace.
-    Each rank compiles the same with ``mesh=``: its prefill splits the
-    rows over 'model' (K1 fits each projection's register through its
-    split launch, attention gathers k and v) and must return the
-    reference's logits, cache and A/D ops bitwise.  Then each serves the
-    trace (every prefill split; a decode step, one row, whole on both),
-    launches counted from 0 just before it and K1's plain versions not
-    called: its tokens and per-request A/D ops must be the reference's,
-    bitwise.  Last, each rank prefills the ``CP_WIDE`` configs (the other
-    dense widths; internvl2's patch rows split with the tokens) split,
-    bitwise their mesh-less prefills.  Returns the readings and the
+def whisper_mesh_config():
+    """whisper-medium at full width cut to ``HEADS_WHISPER_LAYERS``
+    encoder and decoder layers (16 KV heads: the KV-head branch)."""
+    return whisper_config().replace(n_layers=HEADS_WHISPER_LAYERS,
+                                    encoder_layers=HEADS_WHISPER_LAYERS)
+
+
+def cp_phase(torch, rec: dict, cfg, device: str = "cuda",
+             attn_rec: dict = None) -> dict:
+    """Phase 19, the context-parallel and decode layouts: two ranks share
+    the card as two threads of this process (:func:`threaded_ranks`) on a
+    (1, 2) mesh.  ``cfg`` (llama3.2-3b on ``pallas``) is cut to
+    ``CP_LAYERS`` layers, and a mesh-less Runtime of it gives the
+    reference: a 64-token prefill and phase 3's trace.  Each rank compiles
+    the same with ``mesh=``: its prefill splits the rows over 'model' (K1
+    fits each projection's register through its split launch, attention
+    gathers k and v) and must return the reference's logits, cache and
+    A/D ops bitwise.  Then each serves the trace (every prefill split;
+    each decode step on the rank's 4 of llama's 8 KV heads: it keeps and
+    attends that share of the pages), launches counted from 0 just before
+    it and K1's plain versions not called: its tokens and per-request A/D
+    ops must be the reference's, bitwise, and its pools half the whole
+    pools' bytes.  Each reads a decode step's host seconds and
+    collectives on the K/V share and on a whole cache.  Then it prefills
+    the ``CP_WIDE`` configs (the other dense widths; internvl2's patch
+    rows split with the tokens) split, bitwise their mesh-less prefills,
+    and serves whisper-medium at ``HEADS_WHISPER_LAYERS`` + 2 layers (8
+    of its 16 KV heads, self- and cross-KV, a rank) bitwise its mesh-less
+    tokens and per-request A/D ops.  Returns the readings and the
     seconds."""
-    import threading
-    import traceback
-
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
-    from torch.testing._internal.distributed.multi_threaded_pg import (
-        ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
-
     from repro_torch import runtime
     from repro_torch.kernels.trq_group_mvm import kernel as k1
     from repro_torch.models.registry import init
@@ -4623,86 +5024,87 @@ def cp_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     wide_ref = cp_wide_refs(torch, device)
-    out: list = [None] * CP_RANKS
-    errors: list = []
-    gate = threading.Barrier(CP_RANKS, timeout=CP_RUN_S)
+    wcfg = whisper_mesh_config()
+    gen = torch.Generator(device=device).manual_seed(12)
+    frames = torch.randn(WHISPER_BATCH, WHISPER_FRAMES, wcfg.d_model,
+                         generator=gen, device=device)
+    rt = runtime.compile(wcfg, init(wcfg, seed=0, device=device),
+                         device=device)
+    warm(rt)
+    k1.LAUNCHES = 0
+    zero_decode_attn()
+    whisper_ref = heads_whisper_trace(torch, rt, frames)
+    whisper_ref["launches"] = k1.LAUNCHES
+    whisper_ref["attn_launches"] = decode_attn_counts()[0]
+    if decode_attn_counts() != (whisper_ref["attn_launches"],) * 2 or \
+            not whisper_ref["attn_launches"]:
+        raise AssertionError(f"whisper's mesh-less trace launched "
+                             f"decode_attn {decode_attn_counts()} times")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
     counts: dict = {}
-    store = dist.HashStore()
 
-    def rank_main(r: int) -> None:
-        # the group ends with the threaded world (reset and uninstalled
-        # below): some torch releases' destroy_process_group reads state
-        # that world lacks
-        try:
-            dist.init_process_group("threaded", rank=r,
-                                    world_size=CP_RANKS, store=store)
-            mesh = DeviceMesh(device, torch.arange(CP_RANKS).reshape(
-                1, CP_RANKS), mesh_dim_names=("data", "model"))
-            rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
-                                 device=device, mesh=mesh)
-            warm(rt)
-            from repro_torch.serve import ServeEngine
-            engine = ServeEngine(rt, max_batch=TRACE_BATCH, max_len=256,
-                                 block_size=16)
-            pre = cp_prefill(torch, rt, cfg, device)
-            gate.wait()
-            if r == 0:
-                k1.LAUNCHES = k1.PSUMS_LAUNCHES = k1.QUANTIZE_LAUNCHES = 0
-            gate.wait()
-            calls0, t1 = rt.forward_calls, time.perf_counter()
-            for prompt in trace_prompts(cfg):
-                engine.submit(prompt, max_new_tokens=16)
-            done = sorted(engine.run(), key=lambda q: q.uid)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-            gate.wait()
-            if r == 0:
-                counts.update(one_call=k1.LAUNCHES, psums=k1.PSUMS_LAUNCHES,
-                              quantize=k1.QUANTIZE_LAUNCHES)
-            res = dict(prefill=pre, tokens=[list(q.generated) for q in done],
-                       request_ops=[q.ad_ops for q in done],
-                       reused=[q.reused_tokens for q in done],
-                       forwards=rt.forward_calls - calls0, wall_s=wall,
-                       wide={})
-            del engine, rt
+    def rank_main(r: int, mesh, gate) -> dict:
+        rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
+                             device=device, mesh=mesh)
+        warm(rt)
+        from repro_torch.serve import ServeEngine
+        engine = ServeEngine(rt, max_batch=TRACE_BATCH, max_len=256,
+                             block_size=16)
+        pre = cp_prefill(torch, rt, cfg, device)
+        gate.wait()
+        if r == 0:
+            k1.LAUNCHES = k1.PSUMS_LAUNCHES = k1.QUANTIZE_LAUNCHES = 0
+            zero_decode_attn()
+        gate.wait()
+        calls0, t1 = rt.forward_calls, time.perf_counter()
+        for prompt in trace_prompts(cfg):
+            engine.submit(prompt, max_new_tokens=16)
+        done = sorted(engine.run(), key=lambda q: q.uid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        gate.wait()
+        if r == 0:
+            counts.update(one_call=k1.LAUNCHES, psums=k1.PSUMS_LAUNCHES,
+                          quantize=k1.QUANTIZE_LAUNCHES,
+                          attn=decode_attn_counts())
+        res = dict(prefill=pre, tokens=[list(q.generated) for q in done],
+                   request_ops=[q.ad_ops for q in done],
+                   reused=[q.reused_tokens for q in done],
+                   forwards=rt.forward_calls - calls0, wall_s=wall,
+                   pools=pool_bytes(engine), wide={})
+        res["decode"] = decode_readings(torch, rt, cfg)
+        del engine, rt
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch, layers in CP_WIDE:
+            acfg = dense_config(arch, layers)
+            wrt = runtime.compile(acfg, init(acfg, seed=0, device=device),
+                                  device=device, mesh=mesh)
+            res["wide"][arch] = cp_prefill(torch, wrt, acfg, device)
+            del wrt
             gc.collect()
             torch.cuda.empty_cache()
-            for arch, layers in CP_WIDE:
-                wcfg = dense_config(arch, layers)
-                wrt = runtime.compile(wcfg, init(wcfg, seed=0, device=device),
-                                      device=device, mesh=mesh)
-                res["wide"][arch] = cp_prefill(torch, wrt, wcfg, device)
-                del wrt
-                gc.collect()
-                torch.cuda.empty_cache()
-            out[r] = res
-        except BaseException as e:             # the other rank must stop
-            errors.append(f"rank {r}: {traceback.format_exc()}")
-            gate.abort()
-            ProcessLocalGroup.exception_handle(e)
+        wrt = runtime.compile(wcfg, init(wcfg, seed=0, device=device),
+                              device=device, mesh=mesh)
+        warm(wrt)
+        gate.wait()
+        if r == 0:
+            k1.LAUNCHES = 0
+            zero_decode_attn()
+        gate.wait()
+        res["whisper"] = heads_whisper_trace(torch, wrt, frames)
+        gate.wait()
+        if r == 0:
+            counts.update(whisper=k1.LAUNCHES,
+                          whisper_attn=decode_attn_counts())
+        del wrt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
 
-    torch._C._distributed_c10d._set_thread_isolation_mode(True)
-    _install_threaded_pg()
-    try:
-        with plain_k1_calls() as plain:
-            threads = [threading.Thread(target=rank_main, args=(r,),
-                                        daemon=True)
-                       for r in range(CP_RANKS)]
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join(CP_RUN_S)
-    finally:
-        ProcessLocalGroup.reset()
-        _uninstall_threaded_pg()
-        torch._C._distributed_c10d._set_thread_isolation_mode(False)
-    if any(th.is_alive() for th in threads):
-        raise AssertionError(f"the two ranks did not finish in {CP_RUN_S} s")
-    if errors:
-        raise AssertionError("a rank failed:\n" + "\n".join(errors))
-    if plain["calls"]:
-        raise AssertionError(f"K1's plain version ran {plain['calls']} times "
-                             f"on the card's main path")
+    out = threaded_ranks(torch, CP_RANKS, rank_main, CP_RUN_S, device)
     for r in range(CP_RANKS):
         got = out[r]["prefill"]
         diff = [key for key in ("logits", "k", "v")
@@ -4723,12 +5125,29 @@ def cp_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
         if out[r]["tokens"] != out[0]["tokens"] or \
                 out[r]["request_ops"] != out[0]["request_ops"]:
             raise AssertionError("the two ranks returned different results")
+        for key, (held, whole) in (("llama", out[r]["pools"]),
+                                   ("whisper", out[r]["whisper"]["pools"])):
+            if held * CP_RANKS != whole:
+                raise AssertionError(f"rank {r}'s {key} pools hold {held} of "
+                                     f"{whole} bytes, not 1/{CP_RANKS}")
+        got = out[r]["whisper"]
+        if got["tokens"] != whisper_ref["tokens"] or \
+                got["request_ops"] != whisper_ref["request_ops"]:
+            raise AssertionError(f"rank {r}'s whisper trace on its share of "
+                                 f"the heads left the mesh-less one: tokens "
+                                 f"{got['tokens']} vs {whisper_ref['tokens']}"
+                                 f", A/D ops {got['request_ops']} vs "
+                                 f"{whisper_ref['request_ops']}")
     res = out[0]
     prefills = len(res["tokens"])               # the trace's own
     decodes = res["forwards"] - len(res["tokens"])
     per = PROJ_PER_LAYER * cfg.n_layers * CP_RANKS
+    attn = cfg.n_layers * CP_RANKS * decodes
+    wattn = whisper_ref["attn_launches"] * CP_RANKS
     want = dict(one_call=per * decodes, psums=per * prefills,
-                quantize=per * prefills)
+                quantize=per * prefills, attn=(attn, attn),
+                whisper=whisper_ref["launches"] * CP_RANKS,
+                whisper_attn=(wattn, wattn))
     if counts != want or sorted(res["reused"]) != [0] + [48] * 7:
         raise AssertionError(f"launches {counts} for {prefills} split "
                              f"prefills and {decodes} decode steps on "
@@ -4745,25 +5164,198 @@ def cp_phase(torch, rec: dict, cfg, device: str = "cuda") -> dict:
                              f"{trace['request_ops']}")
     rec["launches_by_path"][f"{cfg.name} at {CP_LAYERS} layers on two "
                             f"ranks, sequence split"] = counts["one_call"]
+    rec["launches_by_path"][f"{WHISPER_ARCH} at {HEADS_WHISPER_LAYERS} + "
+                            f"{HEADS_WHISPER_LAYERS} layers on two ranks, "
+                            f"KV heads split"] = counts["whisper"]
+    if attn_rec is not None:
+        attn_rec["launches_by_path"][
+            f"{cfg.name} at {CP_LAYERS} layers on two ranks, KV heads "
+            f"split"] = counts["attn"][0]
+        attn_rec["launches_by_path"][
+            f"{WHISPER_ARCH} at {HEADS_WHISPER_LAYERS} + "
+            f"{HEADS_WHISPER_LAYERS} layers on two ranks, KV heads "
+            f"split"] = counts["whisper_attn"][0]
     for key in ("psums", "quantize"):
         rec["entries"][f"trq_group_mvm_{key}"]["launches"] += counts[key]
     log(f"  two threaded ranks on (1, {CP_RANKS}), {CP_LAYERS} layers: the "
         f"split 64-token prefill's logits, cache and A/D ops equal the "
         f"mesh-less ones; the trace ({prefills} split prefills, "
-        f"{decodes} decode steps) gave the mesh-less tokens and "
-        f"per-request A/D ops, bitwise; launches {counts} (K1's plain "
-        f"version 0 times); the trace in {res['wall_s']:.2f} s against "
-        f"{trace['wall_s']:.2f} s mesh-less")
+        f"{decodes} decode steps, each on the rank's half of the KV heads) "
+        f"gave the mesh-less tokens and per-request A/D ops, bitwise; "
+        f"launches {counts} (K1's plain version 0 times); the trace in "
+        f"{res['wall_s']:.2f} s against {trace['wall_s']:.2f} s mesh-less; "
+        f"pools {res['pools'][0]} of {res['pools'][1]} bytes a rank")
+    for name, reading in res["decode"].items():
+        log(f"  a batch-{TRACE_BATCH} decode step on the {name} cache: "
+            f"{reading['host_ms']:.2f} ms host, collectives "
+            f"{reading['collectives']}")
     for arch, layers in CP_WIDE:
         log(f"  {arch} at {layers} layers (d_model "
             f"{dense_config(arch, layers).d_model}): the split prefill of "
             f"{wide_ref[arch]['rows']} rows gave the mesh-less logits, cache "
             f"and A/D ops ({wide_ref[arch]['ops']}) on both ranks, bitwise")
+    log(f"  {WHISPER_ARCH} at {HEADS_WHISPER_LAYERS} + "
+        f"{HEADS_WHISPER_LAYERS} layers, 8 of 16 KV heads a rank: tokens "
+        f"and per-request A/D ops bitwise the mesh-less ones "
+        f"({whisper_ref['tokens'][0][:4]}...); pools "
+        f"{res['whisper']['pools'][0]} of {res['whisper']['pools'][1]} "
+        f"bytes a rank")
     return dict(mesh=[1, CP_RANKS], layers=CP_LAYERS, launches=counts,
                 wide={arch: dict(layers=layers, rows=wide_ref[arch]["rows"],
                                  bitwise=True) for arch, layers in CP_WIDE},
                 bitwise=True, tokens=sum(map(len, trace["tokens"])),
                 wall_s=res["wall_s"], mesh_less_wall_s=trace["wall_s"],
+                pool_bytes=res["pools"], decode=res["decode"],
+                whisper=dict(layers=HEADS_WHISPER_LAYERS,
+                             pool_bytes=res["whisper"]["pools"],
+                             bitwise=True),
+                phase_s=time.perf_counter() - t0)
+
+
+def attention_inputs(torch, rt, cfg, device: str = "cuda") -> tuple:
+    """A batch-4 decode step of ``rt`` after a 64-token prefill of the
+    trace's first four prompts: each attention layer's inputs and its
+    output before ``wo``."""
+    import numpy as np
+    toks = np.stack(trace_prompts(cfg)[:TRACE_BATCH]).astype(np.int32)
+    (last, cache), _ = rt.prefill(toks, max_len=256)
+    nxt = torch.argmax(last, -1)[:, None].to(torch.int32)
+    inputs, outs, hooks = [], [], []
+    for layer in rt.model.layers:
+        hooks.append(layer.attn.register_forward_pre_hook(
+            lambda m, a, k: inputs.append((a, k)), with_kwargs=True))
+        hooks.append(layer.attn.wo.register_forward_pre_hook(
+            lambda m, a: outs.append(a[0])))
+    rt.decode(nxt, cache)
+    for h in hooks:
+        h.remove()
+    return inputs, outs
+
+
+def share_attention(torch, rt, inputs) -> list:
+    """Every attention layer of ``rt`` on ``inputs`` (the mesh-less
+    step's), holding this rank's share of the heads: its output before
+    ``wo``."""
+    from repro_torch.dist import group
+    share = group.head_share(rt.mesh, rt.cfg)
+    got = []
+    for layer, (args, kw) in zip(rt.model.layers, inputs):
+        h = layer.attn.wo.register_forward_pre_hook(
+            lambda m, a: got.append(a[0]))
+        lc = dict(kw["cache"])
+        lc.update(k=share.keys(lc["k"]), v=share.keys(lc["v"]))
+        with torch.no_grad(), rt._ambient(), group.split_heads(share):
+            layer.attn(args[0], rt._ctx(), args[2], cache=lc)
+        h.remove()
+    return got
+
+
+def head_dim_phase(torch, rec: dict, device: str = "cuda") -> dict:
+    """Phase 19, the decode layout's head-dim branch: ``HEADS_DIM``'s
+    model (glm4-9b: 2 KV heads, so a 4-wide axis splits each head's 128
+    dims) on four threaded ranks on (1, 4), its prefills split over
+    'model' (``fsdp_cp``).  In f32 compute, every attention layer of a
+    decode step, fed the mesh-less step's inputs, must give the
+    mesh-less output before ``wo`` within ``ATTN_BAR`` (rtol and atol:
+    the scores are partial sums all-reduced over the ranks, another
+    order); on the serving config a trace of ``HEADS_DIM_TRACE`` (named
+    inputs: a longer one crosses a bf16 rounding of a probability now
+    and then, and the random model's top logits are near ties) must give
+    the mesh-less tokens and per-request A/D ops.  Prints the gap."""
+    from repro_torch import runtime
+    from repro_torch.dist import group
+    from repro_torch.kernels.trq_group_mvm import kernel as k1
+    from repro_torch.models.registry import init
+    t0 = time.perf_counter()
+    arch, layers, ranks = HEADS_DIM
+    cfg = dense_config(arch, layers)
+    if not cfg.n_kv_heads % ranks or cfg.hd % ranks:
+        raise AssertionError(f"{arch} on {ranks} ranks is not the head-dim "
+                             f"branch")
+    cfg32 = cfg.replace(dtype="float32")
+    rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
+                         device=device)
+    warm(rt)
+    k1.LAUNCHES = 0
+    trace = engine_trace(torch, rt, cfg, HEADS_DIM_SEED, *HEADS_DIM_TRACE)
+    trace["launches"] = k1.LAUNCHES
+    rt = runtime.compile(cfg32, init(cfg32, seed=0, device=device),
+                         device=device)
+    inputs, want = attention_inputs(torch, rt, cfg32, device)
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts: dict = {}
+
+    def rank_main(r: int, mesh, gate) -> dict:
+        if group.head_share(mesh, cfg).kv:
+            raise AssertionError("not the head-dim branch")
+        rt = runtime.compile(cfg32, init(cfg32, seed=0, device=device),
+                             device=device, mesh=mesh)
+        attn = share_attention(torch, rt, inputs)
+        rt = runtime.compile(cfg, init(cfg, seed=0, device=device),
+                             device=device, mesh=mesh)
+        warm(rt)
+        gate.wait()
+        if r == 0:
+            k1.LAUNCHES = k1.PSUMS_LAUNCHES = k1.QUANTIZE_LAUNCHES = 0
+        gate.wait()
+        res = engine_trace(torch, rt, cfg, HEADS_DIM_SEED, *HEADS_DIM_TRACE)
+        gate.wait()
+        if r == 0:
+            counts.update(one_call=k1.LAUNCHES, psums=k1.PSUMS_LAUNCHES,
+                          quantize=k1.QUANTIZE_LAUNCHES)
+        res["attn"] = attn
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    out = threaded_ranks(torch, ranks, rank_main, HEADS_RUN_S, device)
+    gap = dict(max_abs=0.0, max_rel=0.0)
+    for r in range(ranks):
+        for i, (a, b) in enumerate(zip(out[r]["attn"], want)):
+            d = (a.float() - b.float()).abs()
+            gap["max_abs"] = max(gap["max_abs"], float(d.max()))
+            gap["max_rel"] = max(gap["max_rel"], float(
+                (d / b.float().abs().clamp_min(1e-30)).max()))
+            if not bool((d <= ATTN_BAR + ATTN_BAR * b.float().abs()).all()):
+                raise AssertionError(f"rank {r}'s layer {i} attention off "
+                                     f"the mesh-less one past rtol = atol = "
+                                     f"{ATTN_BAR}: {gap}")
+        held, whole = out[r]["pools"]
+        same = sum(a == b for ta, tb in zip(out[r]["tokens"], trace["tokens"])
+                   for a, b in zip(ta, tb))
+        total = sum(map(len, trace["tokens"]))
+        if out[r]["tokens"] != trace["tokens"] or \
+                out[r]["request_ops"] != trace["request_ops"] or \
+                held * ranks != whole:
+            ops = out[r]["request_ops"] == trace["request_ops"]
+            raise AssertionError(f"rank {r}'s trace (seed {HEADS_DIM_SEED}) "
+                                 f"on its share of the head dims left the "
+                                 f"mesh-less one: {same} of {total} tokens "
+                                 f"equal, A/D ops equal {ops}; its pools "
+                                 f"hold {held} of {whole} bytes")
+    # each rank runs every projection of the mesh-less trace, a split
+    # prefill's auto-ranged ones through the split launch
+    if counts["one_call"] + counts["psums"] != trace["launches"] * ranks \
+            or counts["psums"] != counts["quantize"] or not counts["psums"]:
+        raise AssertionError(f"K1 launched {counts} on {ranks} ranks; "
+                             f"expected {ranks} x {trace['launches']} "
+                             f"projections")
+    rec["launches_by_path"][f"{arch} at {layers} layers on {ranks} ranks, "
+                            f"head dim split"] = counts["one_call"]
+    for key in ("psums", "quantize"):
+        rec["entries"][f"trq_group_mvm_{key}"]["launches"] += counts[key]
+    log(f"  {arch} at {layers} layers on (1, {ranks}), {cfg.hd // ranks} of "
+        f"each head's {cfg.hd} dims a rank: attention before wo within "
+        f"rtol = atol = {ATTN_BAR} of the mesh-less one on every layer "
+        f"(gap: max abs {gap['max_abs']:.3e}, max rel {gap['max_rel']:.3e}); "
+        f"the trace's tokens and per-request A/D ops equal the mesh-less "
+        f"ones; pools {out[0]['pools'][0]} of {out[0]['pools'][1]} bytes a "
+        f"rank; K1 launches {counts}")
+    return dict(arch=arch, layers=layers, mesh=[1, ranks], gap=gap,
+                launches=counts, pool_bytes=out[0]["pools"],
                 phase_s=time.perf_counter() - t0)
 
 
@@ -4839,12 +5431,20 @@ def main(argv) -> int:
                 replaces="src/repro/kernels/xbar_mvm/kernel.py:72",
                 launches=0, launches_by_path={}, max_abs_err=0.0,
                 shapes=[])
+    rec4 = dict(name="decode_attn", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attn.cu",
+                replaces="src/repro/models/attention.py:132",
+                launches=0, launches_by_path={}, max_abs_err=0.0,
+                entries={"scores": {"launches": 0},
+                         "values": {"launches": 0}}, shapes=[])
     header("phase 2: trq_group_mvm against its plain version")
     k1_phase(torch, rec)
     k1_split_phase(torch, rec)
+    header("phase 2b: decode_attn against its plain version")
+    decode_attn_phase(torch, rec4)
     header("phase 3: serve full-width llama3.2-3b on pallas")
     cfg = pallas_config()
-    serve = serve_phase(torch, rec, cfg)
+    serve = serve_phase(torch, rec, cfg, attn_rec=rec4)
     torch.cuda.empty_cache()
     header("phase 5: trq_quant against its plain version, both entries")
     k2_phase(torch, rec2)
@@ -4877,17 +5477,19 @@ def main(argv) -> int:
     rwkv["phase_s"] = time.perf_counter() - t11
     gc.collect()
     torch.cuda.empty_cache()
-    header(f"phase 12: serve full-width {WHISPER_ARCH} on pallas and "
-        f"bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
-        f"still allocated)")
+    header(f"phase 12: serve full-width {WHISPER_ARCH} ({WHISPER_LAYERS} + "
+        f"{WHISPER_LAYERS} layers) on pallas and bit_exact "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated)")
     t12 = time.perf_counter()
     whisper = whisper_phase(torch, rec, rec3, whisper_config())
     whisper["phase_s"] = time.perf_counter() - t12
     gc.collect()
     torch.cuda.empty_cache()
-    header(f"phase 13: serve full-width {GRANITE_ARCH} on pallas and "
-        f"bit_exact ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
-        f"still allocated)")
+    header(f"phase 13: serve full-width {GRANITE_ARCH} ({GRANITE_LAYERS} "
+        f"layers) on pallas and bit_exact "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated)")
     t13 = time.perf_counter()
     granite = granite_phase(torch, rec, rec3, granite_config())
     granite["phase_s"] = time.perf_counter() - t13
@@ -4943,9 +5545,14 @@ def main(argv) -> int:
     mesh = mesh_phase(torch, rec, cfg, serve["trace"])
     gc.collect()
     torch.cuda.empty_cache()
-    mesh["seq_split"] = cp_phase(torch, rec, cfg)
-    for r in (rec, rec3):
+    mesh["seq_split"] = cp_phase(torch, rec, cfg, attn_rec=rec4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh["head_dim"] = head_dim_phase(torch, rec)
+    for r in (rec, rec3, rec4):
         r["launches"] = sum(r["launches_by_path"].values())
+    for name in ("scores", "values"):        # one of each a layer and step
+        rec4["entries"][name]["launches"] = rec4["launches"]
 
     # K2's headline is the entry its main path launches, the scoring one
     elementwise = next(x for x in rec2["shapes"]
@@ -4982,7 +5589,7 @@ def main(argv) -> int:
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())
-    log(json.dumps({"kernels": [rec, rec2, rec3]}))
+    log(json.dumps({"kernels": [rec, rec2, rec3, rec4]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

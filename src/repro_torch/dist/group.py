@@ -15,17 +15,28 @@ divide runs whole on every rank of the axis, as the reference replicates
 an indivisible dim.  While a forward holds its block
 (:func:`split_rows`), every quantity the single-device run takes over
 all rows is reduced over the split axes: the dynamic max-abs scales and
-the auto-range maximum (:func:`global_max`) and the A/D operation count
-(:func:`global_sum`, once); outputs come back whole (:func:`gather_rows`).
+the auto-range maximum (:func:`global_max`), the A/D operation count
+(:func:`global_sum`, once) and the MoE Switch loss's two means
+(``models.moe.switch_loss``); outputs come back whole
+(:func:`gather_rows`), but for a decode step's K/V share where the
+caller keeps it (``Runtime.decode(kv_share=True)``).
 A section that every model rank runs on the same rows (:func:`replicated`:
 a patch frontend's projection, the serving logits) reduces over the data
 axes only, and its A/D count is kept by model rank 0 (:func:`counts_here`).
+
+At decode the model axis splits the attention heads instead, the
+reference's cache layout (:func:`head_axes`): a rank keeps and attends
+its share of the KV cache, whole KV heads when they divide the axis, else
+a block of every head's dims (:class:`HeadShare`, installed for a forward
+by :func:`split_heads`).  The projections still run whole on every model
+rank; attention gathers its output's heads before ``wo``, and a head-dim
+share all-reduces its partial scores.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -270,3 +281,90 @@ def gather_seq(t: torch.Tensor, dim: int) -> torch.Tensor:
     if not seq_is_split():
         return t
     return _GatherSeq.apply(t, dim, sharding._ACTIVE["mesh"])
+
+
+# ---------------------------------------------------------------------------
+# the head split of a decode step
+# ---------------------------------------------------------------------------
+
+def head_axes(mesh, cfg) -> tuple:
+    """(KV-head entry, head-dim entry) of an attention cache leaf, the
+    reference's rule: 'model' on the KV heads when they divide it, else on
+    the head dim when that divides it, else on neither."""
+    names = sharding.axis_names(mesh)
+    if "model" not in names:
+        return None, None
+    n_m = sharding.axis_size(mesh, "model")
+    if cfg.n_kv_heads % n_m == 0:
+        return "model", None
+    if cfg.hd % n_m == 0:
+        return None, "model"
+    return None, None
+
+
+class HeadShare(NamedTuple):
+    """This rank's share of the attention heads at decode: ``kv`` whole KV
+    heads (each with its G query heads) or a block of every head's dims,
+    the ``index``-th of ``ranks`` on ``mesh``'s 'model' axis."""
+    kv: bool
+    ranks: int
+    index: int
+    mesh: object
+
+    def _cut(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        n = t.shape[dim] // self.ranks
+        return t.narrow(dim, self.index * n, n)
+
+    def keys(self, t: torch.Tensor) -> torch.Tensor:
+        """A (..., KV, hd) key or value tensor -> this rank's share."""
+        return self._cut(t, -2 if self.kv else -1)
+
+    def queries(self, qg: torch.Tensor) -> torch.Tensor:
+        """Grouped (..., KV, G, hd) queries -> this rank's share."""
+        return self._cut(qg, -3 if self.kv else -1)
+
+    def scores(self, s: torch.Tensor) -> torch.Tensor:
+        """Scores of the share -> the whole heads' (a head-dim share's are
+        partial sums over the dims: one all-reduce over 'model')."""
+        if self.kv:
+            return s
+        s = s.contiguous()
+        dist.all_reduce(s, group=self.mesh.get_group("model"))
+        return s
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """The share's (B, S, KV, G, hd) output -> every head's, gathered
+        over 'model' in head order."""
+        return gather_rows(o, o.ndim - 3 if self.kv else o.ndim - 1,
+                           self.mesh, ("model",))
+
+
+def head_share(mesh, cfg) -> Optional[HeadShare]:
+    """This rank's :class:`HeadShare` of ``cfg``'s attention on ``mesh``
+    by :func:`head_axes`, or None: no mesh, one model rank, or neither
+    the KV heads nor the head dim divides the axis (every rank then holds
+    whole heads, as the reference replicates)."""
+    if mesh is None or seq_size(mesh) == 1:
+        return None
+    kv_ax, hd_ax = head_axes(mesh, cfg)
+    if kv_ax is None and hd_ax is None:
+        return None
+    return HeadShare(kv_ax is not None, seq_size(mesh),
+                     mesh.get_local_rank("model"), mesh)
+
+
+@contextlib.contextmanager
+def split_heads(share: Optional[HeadShare]):
+    """Mark the dynamic extent as a decode step whose attention holds
+    ``share`` of the heads (None: whole heads)."""
+    prev = sharding._ACTIVE["heads"]
+    sharding._ACTIVE["heads"] = share
+    try:
+        yield
+    finally:
+        sharding._ACTIVE["heads"] = prev
+
+
+def heads_held() -> Optional[HeadShare]:
+    """The running decode step's :class:`HeadShare`, or None."""
+    return sharding._ACTIVE["heads"]

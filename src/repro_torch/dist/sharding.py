@@ -24,11 +24,15 @@ a meshed run are plain tensors holding this rank's block of the rows
 (``dist.group``): its share of the batch on the data axes and, under the
 context-parallel layout (``parallelism="fsdp_cp"``, the dense decoders),
 its block of the sequence on ``'model'``, with the keys and values
-gathered whole for attention.  The reference's constraint sites of that
-layout are those moves, made explicitly; :func:`shard` itself returns its
-input, and the tensor-parallel layouts on ``'model'`` (heads, FFN,
-experts, mamba channels: ``parallelism="tp"``) have no counterpart yet,
-so there the model axis repeats compute.
+gathered whole for attention.  At decode the model axis splits the
+attention heads instead, the reference's cache layout: each rank keeps
+and attends its share of the KV cache (``dist.group.HeadShare``) and
+gathers the attention output's heads.  The reference's constraint sites
+of those layouts are these moves, made explicitly; :func:`shard` itself
+returns its input.  The other tensor-parallel sites on ``'model'`` (the
+heads and FFN of a prefill or a train step, experts, mamba channels:
+``parallelism="tp"``) have no counterpart yet: there the model axis
+repeats compute.
 
 The port keeps one tensor a layer (``layers.{d}.…``), so a per-layer
 leaf's spec is the reference's stacked spec without its leading stack
@@ -69,14 +73,16 @@ _DEFAULT_RULES = {
 class _State(threading.local):
     """The active mesh + resolution rules, the mesh axes over which the
     running forward's rows are split (``dist.group.split_rows``: the data
-    axes for the batch, ``'model'`` for the sequence) and whether it is in
+    axes for the batch, ``'model'`` for the sequence), whether it is in
     a section every model rank runs on the same rows
-    (``dist.group.replicated``).  Per thread: ranks that share a process
-    (a threaded process group) each keep their own."""
+    (``dist.group.replicated``) and the share of the attention heads a
+    decode step holds (``dist.group.split_heads``).  Per thread: ranks
+    that share a process (a threaded process group) each keep their
+    own."""
 
     def __init__(self):
         self.d = {"mesh": None, "rules": dict(_DEFAULT_RULES), "split": (),
-                  "replicated": False}
+                  "replicated": False, "heads": None}
 
 
 class _Active:
@@ -287,9 +293,12 @@ def shard(x, *axes):
     The port places activations explicitly (``dist.group``): a meshed
     run holds this rank's rows of the batch and, under ``fsdp_cp``, its
     block of the sequence, and gathers the attention keys and values
-    where the reference's constraint replicates them.  Nothing else has a
-    layout to place until the tensor-parallel split of the kernels gives
-    ``'model'`` one (``parallelism="tp"``); the model calls no ``shard``."""
+    where the reference's constraint replicates them; a decode step
+    holds its share of the attention heads (the reference's ``"kv"`` and
+    ``"heads"`` constraints) and gathers the output's.  Nothing else has
+    a layout to place until the tensor-parallel split of the kernels
+    gives ``'model'`` one (``parallelism="tp"``); the model calls no
+    ``shard``."""
     return x
 
 
@@ -439,6 +448,11 @@ def whole(t):
     """The whole value of a DTensor (a plain tensor as it is)."""
     from torch.distributed.tensor import DTensor
     return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def local(t):
+    """A DTensor's block on this rank (a plain tensor as it is)."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def assign(dst, src) -> None:

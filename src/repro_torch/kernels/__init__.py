@@ -9,10 +9,16 @@
 ``xbar_mvm``       the bit-exact sliced crossbar MVM on bit-mask planes,
                    popcount bit-line sums, one conversion each (port of the
                    Pallas ``xbar_mvm`` kernel); backs ``bit_exact``.
+``decode_attn``    one-row (decode) attention against a cache, scores and
+                   softmax-weighted values in two entries, each sum in an
+                   order fixed by one head's shapes (replaces no Pallas
+                   kernel: a rank's share of the heads gives the whole
+                   call's bits, which cuBLAS's batched products did not).
 
 Each kernel directory has ``kernel.py`` (ctypes wrapper of ``csrc/*.cu``),
 ``ref.py`` (plain PyTorch version) and ``ops.py`` (dispatch by device).
 """
+from .decode_attn import attn_scores, attn_values
 from .trq_group_mvm import trq_group_mvm
 from .trq_quant import trq_quant
 from .xbar_mvm import xbar_mvm

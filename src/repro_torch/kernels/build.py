@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-KERNELS = ("trq_group_mvm", "trq_quant", "xbar_mvm")  # csrc/<name>.cu
+KERNELS = ("trq_group_mvm", "trq_quant", "xbar_mvm",  # csrc/<name>.cu
+           "decode_attn")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

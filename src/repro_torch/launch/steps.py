@@ -30,7 +30,7 @@ from ..configs.base import (LONG_CONTEXT_ARCHS, ModelConfig, SHAPES,
 from ..dist import sharding
 from ..dist.sharding import P
 from ..models.registry import build_model, get_config, model_module
-from ..serve.kvcache import cache_pspecs
+from ..serve.kvcache import step_pspecs
 
 # patch-prefix length for the VLM frontend stub (internvl2: 1024-token tiles)
 VLM_PATCHES = 1024
@@ -172,7 +172,8 @@ def build_serve_cell(arch: str, mesh, shape_name: str,
                      prepare_plan: bool = False) -> Cell:
     """prefill: the prompt forward writing a fresh cache, next-token
     argmax.  decode: one token for every sequence against a seq_len-deep
-    cache.  ``prepare_plan=True`` programs the weight-stationary plan
+    cache, of which each rank holds and attends its share.
+    ``prepare_plan=True`` programs the weight-stationary plan
     (replicated: a plan holds whole derived weight images) and passes it
     to the step, as the ServeEngine's Runtime serves."""
     cfg = cfg or get_config(arch)
@@ -200,9 +201,14 @@ def build_serve_cell(arch: str, mesh, shape_name: str,
         return Cell(arch=arch, shape=shape, cfg=cfg, step_fn=step,
                     args=(rt.params, plan_s, batch_s),
                     in_specs=(p_specs, pl_specs, b_specs), runtime=rt)
-    cache_s = model_module(cfg).init_cache(cfg, b, shape.seq_len,
-                                           device="meta")
-    c_specs = cache_pspecs(mesh, cfg, cache_s, b)
+    # the cache as the decode step holds it: each rank's rows and share
+    # of the K/V heads, DTensors on meta (``kvcache.step_pspecs``)
+    whole = model_module(cfg).init_cache(cfg, b, shape.seq_len,
+                                         device="meta")
+    c_specs = step_pspecs(mesh, cfg, whole, b)
+    cache_s = {k: sharding.zeros_placed(v.shape, v.dtype, "meta", mesh,
+                                        c_specs[k])
+               for k, v in whole.items()}
     return Cell(arch=arch, shape=shape, cfg=cfg, step_fn=step,
                 args=(rt.params, plan_s, cache_s, batch_s),
                 in_specs=(p_specs, pl_specs, c_specs, b_specs), runtime=rt)

@@ -7,7 +7,11 @@ Layouts are the reference's: q (B, S, KV, G, hd) grouped by KV head, k/v
 and caches (B, S, KV, hd).  Under the context-parallel layout
 (``fsdp_cp``, ``dist.group``) a rank holds its block of the sequence:
 its q rows attend at their absolute offset to the keys and values
-gathered whole, and a cache is written whole from them.
+gathered whole, and a cache is written whole from them.  A meshed decode
+step holds its share of the heads (``dist.group.split_heads``, the
+reference's ``"kv"``/``"heads"`` constraints): the projections run whole,
+the rank writes and attends its share of the cache (self- and
+cross-attention) and gathers the output's heads before ``wo``.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..dist import group
 from ..dist.sharding import active_mesh
+from ..kernels.decode_attn import attn_scores, attn_values
 from .layers import PimContext, PimLinear, apply_rope
 
 NEG_INF = -1e30
@@ -55,6 +60,10 @@ def _group_q(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     """(B,S,H,hd) -> (B,S,KV,G,hd) for GQA."""
     b, s, h, hd = q.shape
     return q.reshape(b, s, n_kv, h // n_kv, hd)
+
+
+def _whole(s):
+    return s
 
 
 def full_attention(q, k, v, causal: bool, q_off=0) -> torch.Tensor:
@@ -117,24 +126,34 @@ def chunked_attention(q, k, v, causal: bool, chunk_q: int,
     return out.to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, cache_len, scale=None,
+                     reduce=_whole) -> torch.Tensor:
     """One-token attention against a cache.  q: (B,1,KV,G,hd); caches:
     (B,S,KV,hd); cache_len: (B,) valid entries (the new token included).
+    ``scale`` defaults to ``hd ** -0.5``; ``reduce`` turns the scores of a
+    share of the head dims into the whole heads'.
 
     The reference dots the cache in its own dtype with f32 accumulation
     (``preferred_element_type``): here q is rounded to the cache dtype and
     both operands are widened to f32 before the product, which is the same
-    arithmetic (a bf16 matmul would round its output to bf16)."""
-    scale = q.shape[-1] ** -0.5
+    arithmetic (a bf16 matmul would round its output to bf16).  On the
+    card both halves are ``kernels.decode_attn``'s, whose sums run in an
+    order fixed by one head's shapes, so a rank's share of the heads gives
+    the whole call's bits."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     qs = (q.float() * scale).to(k_cache.dtype).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qs, k_cache.float())
-    mask = torch.arange(k_cache.shape[1], device=q.device)[None, :] < \
-        cache_len[:, None]
-    s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
-    a = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", a.to(v_cache.dtype).float(),
-                     v_cache.float())
-    return o.to(q.dtype)
+    s = reduce(attn_scores(qs, k_cache))
+    return attn_values(s, v_cache, cache_len, round_a=True).to(q.dtype)
+
+
+def cross_decode_attention(q, k, v, scale=None,
+                           reduce=_whole) -> torch.Tensor:
+    """:func:`full_attention` of one query row, never causal (a decode
+    step's cross-attention): q: (B,1,KV,G,hd), k/v: (B,Se,KV,hd); on the
+    card through ``kernels.decode_attn`` as :func:`decode_attention`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = reduce(attn_scores(q.float() * scale, k))
+    return attn_values(s, v).to(q.dtype)
 
 
 def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
@@ -159,7 +178,10 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
     (``positions`` is then unused).  While the sequence is split
     (``dist.group.seq_is_split``), ``x`` is this rank's block: k and v are
     gathered whole after RoPE, every choice is the whole sequence's, and
-    the q rows attend at their absolute offset."""
+    the q rows attend at their absolute offset.  In a decode step that
+    holds a share of the heads (``dist.group.heads_held``), ``cache`` is
+    that share: the rank writes and attends its share of q, k and v, and
+    gathers the output's heads."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     hd = cfg.hd
@@ -190,11 +212,19 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
         o = chunked_attention(qg, k, v, causal, cfg.attn_chunk_q, ck, off) \
             if chunked else full_attention(qg, k, v, causal, off)
     elif s == 1:
+        share = group.heads_held()
+        reduce = _whole
+        if share is not None:
+            qg, k, v = share.queries(qg), share.keys(k), share.keys(v)
+            reduce = share.scores
         idx = cache["len"]
         k_cache = _scatter_time(cache["k"], k, idx)
         v_cache = _scatter_time(cache["v"], v, idx)
         new_cache = {"k": k_cache, "v": v_cache, "len": idx + 1}
-        o = decode_attention(qg, k_cache, v_cache, idx + 1)
+        o = decode_attention(qg, k_cache, v_cache, idx + 1, hd ** -0.5,
+                             reduce)
+        if share is not None:
+            o = share.out(o)
     else:
         pad = cache["k"].shape[1] - s
         kf = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -206,7 +236,7 @@ def apply_attention(p: Attention, x, ctx: PimContext, positions, *,
         o = chunked_attention(qg, k, v, causal, cfg.attn_chunk_q, ck, off) \
             if chunked else full_attention(qg, k, v, causal, off)
 
-    o = o.reshape(b, qg.shape[1], cfg.n_heads * hd)
+    o = o.reshape(b, o.shape[1], cfg.n_heads * hd)
     return p.wo(o, ctx), new_cache
 
 
@@ -219,15 +249,25 @@ def apply_cross_attention(p: Attention, x, enc_kv: dict,
     """x: (B,Sd,D); enc_kv: {'k','v'} (B,Se,KV,hd) precomputed from the
     encoder.  Chunked when both lengths divide by their chunks and one
     exceeds it, else full; never causal, never masked: every row of
-    ``enc_kv`` enters the softmax."""
+    ``enc_kv`` enters the softmax.  In a decode step that holds a share of
+    the heads, ``enc_kv`` is that share of the cross-KV: the rank attends
+    its share of q and gathers the output's heads."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     hd = cfg.hd
     q = p.wq(x, ctx).reshape(b, s, cfg.n_heads, hd)
     qg = _group_q(q, cfg.n_kv_heads)
+    share = group.heads_held()
     se = enc_kv["k"].shape[1]
     cq, ck = cfg.attn_chunk_q, cfg.attn_chunk_k
-    if s % cq == 0 and se % ck == 0 and (s > cq or se > ck):
+    if s == 1:                     # a decode step's row (cq > 1: unchunked)
+        if share is None:
+            o = cross_decode_attention(qg, enc_kv["k"], enc_kv["v"])
+        else:
+            o = share.out(cross_decode_attention(
+                share.queries(qg), enc_kv["k"], enc_kv["v"], hd ** -0.5,
+                share.scores))
+    elif s % cq == 0 and se % ck == 0 and (s > cq or se > ck):
         o = chunked_attention(qg, enc_kv["k"], enc_kv["v"], False, cq, ck)
     else:
         o = full_attention(qg, enc_kv["k"], enc_kv["v"], causal=False)

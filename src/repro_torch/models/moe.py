@@ -8,7 +8,9 @@ router probabilities, renormalised over the chosen k.  Every expert has
 ``round``: a half goes to the even side), filled in routing order (token
 by token, a token's choices in rank order); a choice past its expert's
 capacity is dropped and the residual carries the token.  A Switch-style
-load-balancing loss is returned beside the output.
+load-balancing loss is returned beside the output, over the whole batch:
+while a mesh splits the rows (``dist.group.split_rows``) its two means
+are summed over the ranks (:func:`switch_loss`).
 
 The router, dispatch, expert FFNs and combine are plain tensor ops, as the
 reference's are plain ``jnp``: the expert FFNs do not go through
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..dist import group
 
 
 def capacity(group: int, k: int, capacity_factor: float, e: int) -> int:
@@ -59,6 +62,33 @@ def slot_positions(idx: torch.Tensor, e: int, cap: int):
     return torch.where(dropped, torch.full_like(pos, cap), pos), dropped
 
 
+def switch_loss(probs: torch.Tensor, idx: torch.Tensor,
+                e: int) -> torch.Tensor:
+    """``E * sum_e me_e * ce_e``: ``me`` the mean router probability of
+    expert e, ``ce`` the share of the choices that pick it, both over the
+    whole batch.  While the rows are split each rank's sums are added
+    over the split axes (one all-reduce) and divided by the whole counts,
+    so every rank holds the same value; the gradient flows through this
+    rank's own probabilities only (the others' enter detached), so the
+    ranks' gradients sum to one device's."""
+    prob_sum = probs.sum(dim=(0, 1))
+    flat = idx.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))    # bincount's
+    if not group.rows_split():
+        me = probs.mean(dim=(0, 1))
+        ce = counts.to(probs.dtype) / float(idx.numel())
+    else:
+        tot = group.global_sum(torch.cat([prob_sum.double(),
+                                          counts.double()]))
+        n_choices = tot[e:].sum()
+        rows = n_choices / idx.shape[-1]
+        me = (tot[:e] / rows).to(probs.dtype) + \
+            (prob_sum - prob_sum.detach()) / rows.to(probs.dtype)
+        ce = (tot[e:] / n_choices).to(probs.dtype)
+    return (e * torch.sum(me * ce)).float()
+
+
 def apply_moe(moe: "MoE", x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux_loss f32)."""
     b, s, d = x.shape
@@ -68,13 +98,7 @@ def apply_moe(moe: "MoE", x: torch.Tensor, cfg: ModelConfig):
     xt = x.reshape(g, group, d)
 
     probs, gate, idx = route(xt, moe.router.w, k)
-    # Switch aux loss: E * sum_e (mean router prob e) * (frac choices to e)
-    me = probs.mean(dim=(0, 1))
-    flat = idx.reshape(-1)
-    counts = torch.zeros(e, dtype=torch.int64, device=idx.device)
-    counts.scatter_add_(0, flat, torch.ones_like(flat))    # bincount's
-    ce = counts.to(probs.dtype) / float(idx.numel())
-    aux = (e * torch.sum(me * ce)).float()
+    aux = switch_loss(probs, idx, e)
 
     cap = capacity(group, k, cfg.capacity_factor, e)
     flat_idx = idx.reshape(g, group * k)                  # routing order

@@ -19,9 +19,14 @@ split its rows when they divide it, and under ``fsdp_cp`` the model axis
 splits the sequence when it divides it (``dist.group``); the dynamic
 scales, the auto-range maximum and the A/D count are reduced over the
 split axes, and the logits and the cache come back whole, so every rank
-returns what one device would.  A Runtime whose parameters are on the
-``meta`` device is *abstract*: its steps run on no data (the dry run's
-cells).
+returns what one device would.  A decode step splits the attention heads
+over the model axis, the reference's cache layout (``dist.group.
+head_share``): each rank keeps and attends its share of the K/V cache;
+``decode(kv_share=True)`` takes and returns that share as the serving
+engine's pools hold it; plain ``decode`` takes a whole cache and attends
+whole heads on every rank.  A Runtime whose
+parameters are on the ``meta`` device is *abstract*: its steps run on no
+data (the dry run's cells).
 
 Training (``opt_init``, ``train_step``) runs on the differentiable
 backends (``exact``, and ``fake_quant`` through its straight-through
@@ -131,7 +136,7 @@ class Runtime:
                 (backend_mod._ACTIVE["backend"], qs_mod._ACTIVE["qs"],
                  noise_mod._ACTIVE["cm"]) = prev
 
-    def _share(self, batch: int) -> Optional[slice]:
+    def rows(self, batch: int) -> Optional[slice]:
         """This rank's rows of a ``batch``-row call, or None for all."""
         return group.batch_share(self.mesh, batch)
 
@@ -140,7 +145,7 @@ class Runtime:
         None) and the mesh axes that split the forward's rows: the data
         axes with a share, ``'model'`` when the layout splits a
         ``length``-row sequence (:func:`dist.group.seq_share`)."""
-        share = self._share(batch)
+        share = self.rows(batch)
         axes = group.dp_axes(self.mesh) if share is not None else ()
         if group.seq_share(self.mesh, self.cfg, length) is not None:
             axes += ("model",)
@@ -166,14 +171,18 @@ class Runtime:
 
     def _forward(self, tokens, *, cache=None, mode: str, positions=None,
                  extra: Optional[dict] = None, whole_cache: bool = True,
-                 cache_is_share: bool = False):
+                 cache_is_share: bool = False, kv_share: bool = False):
         """The model forward of an entry point.  On a mesh whose data axes
         split the batch, this rank runs its rows (``cache_is_share``: the
         cache holds only those already) and the logits, and unless
         ``whole_cache`` is False the cache, come back whole.  A sequence
         split on the model axis runs this rank's block of the rows; the
         model returns the cache whole and the serving logits on every
-        rank, and the train-mode logits are gathered here."""
+        rank, and the train-mode logits are gathered here.  With
+        ``kv_share`` (a decode step) the model axis splits the heads: the
+        paged (K/V) leaves come in as this rank's share and go back as
+        this rank holds them (its heads, its rows), never gathered;
+        without, every rank attends whole heads."""
         ctx = self._ctx()
         kw = {}
         if positions is not None:
@@ -192,13 +201,17 @@ class Runtime:
         tokens = self._tensor(tokens)
         share, axes = self._split(len(tokens),
                                   self._length(tokens, kw.get("embeds")))
+        heads = group.head_share(self.mesh, self.cfg) \
+            if mode == "decode" and kv_share else None
+        held = model_module(self.cfg).paged_keys(self.cfg) if kv_share \
+            else ()
         if share is not None:
             tokens = tokens[share]
             kw = {k: v[share] for k, v in kw.items()}
             if cache is not None and not cache_is_share:
                 cache = {k: v[share] if v.ndim == 1 else v[:, share]
                          for k, v in cache.items()}
-        with torch.no_grad(), self._ambient(axes):
+        with torch.no_grad(), self._ambient(axes), group.split_heads(heads):
             logits, new_cache, aux = self.model(tokens, ctx, cache=cache,
                                                 mode=mode, **kw)
             ops = group.global_sum(ctx.ops)
@@ -207,7 +220,7 @@ class Runtime:
             if share is not None:
                 logits = group.gather_rows(logits, 0, self.mesh)
                 if new_cache is not None and whole_cache:
-                    new_cache = {k: group.gather_rows(
+                    new_cache = {k: v if k in held else group.gather_rows(
                         v, 0 if v.ndim == 1 else 1, self.mesh)
                         for k, v in new_cache.items()}
         self.forward_calls += 1
@@ -248,7 +261,7 @@ class Runtime:
         return (logits[:, -1], cache), rep
 
     def _prefill(self, tokens, extra, max_len: int, whole_cache: bool):
-        share = self._share(len(tokens))
+        share = self.rows(len(tokens))
         rows = len(tokens) if share is None else share.stop - share.start
         cache = self.init_cache(rows, max_len)
         logits, cache, _, rep = self._forward(
@@ -263,12 +276,19 @@ class Runtime:
                                               positions=positions)
         return (logits[:, -1], cache), rep
 
-    def decode(self, tokens, cache, extra: Optional[dict] = None):
+    def decode(self, tokens, cache, extra: Optional[dict] = None, *,
+               kv_share: bool = False):
         """One token for every sequence in ``cache``; ``extra`` must be
         empty (an encoder-decoder reads its cross-KV from the cache, a
-        patch frontend's rows are in it)."""
+        patch frontend's rows are in it).  ``cache`` is whole and comes
+        back whole; with ``kv_share`` its paged (K/V) leaves are this
+        rank's share of the heads (``dist.group.head_share``, every row)
+        and come back as this rank holds them: its heads, its rows
+        (:meth:`rows`).  Each rank then attends only its share and no
+        collective reads the cache (the serving engine's pools)."""
         logits, cache, _, rep = self._forward(tokens, cache=cache,
-                                              mode="decode", extra=extra)
+                                              mode="decode", extra=extra,
+                                              kv_share=kv_share)
         return (logits[:, -1], cache), rep
 
     def mvm(self, x: torch.Tensor, layer: str):
@@ -416,7 +436,10 @@ class Runtime:
         ``prefill`` (a fresh ``seq_len``-deep cache) or ``step(params,
         plan, cache, batch)`` for ``decode``, returning (argmax tokens,
         the new cache as this rank holds it).  The parameters and plan run
-        are the Runtime's own; the arguments carry their placements."""
+        are the Runtime's own; the arguments carry their placements: a
+        decode cell's cache is DTensors placed by ``kvcache.step_pspecs``
+        (this rank's rows and share of the heads), which the step reads
+        and returns as local tensors."""
         def extra_of(batch):
             return {k: v for k, v in batch.items() if k == "embeds"}
 
@@ -428,9 +451,10 @@ class Runtime:
             return step
 
         def step(params, plan, cache, batch):
+            cache = {k: sharding.local(v) for k, v in cache.items()}
             logits, cache, _, _ = self._forward(
                 batch["tokens"], cache=cache, mode="decode",
-                whole_cache=False)
+                whole_cache=False, cache_is_share=True, kv_share=True)
             return torch.argmax(logits[:, -1], -1), cache
         return step
 

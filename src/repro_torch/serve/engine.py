@@ -38,8 +38,12 @@ block pool and per-request attribution of each call's ``AdOpsReport``.
 * Per-request metering: prefill ops go to their request exactly, a decode
   step's ops are split evenly over the slots that stepped.
 * On a mesh (the Runtime's) the page pools are DTensors placed by
-  ``kvcache.pool_pspecs``; every rank runs the same schedule, and the
-  Runtime's entry points return whole logits, caches and A/D counts, so
+  ``kvcache.pool_pspecs``, each rank holding its share of the heads.
+  Every rank runs the same schedule.  A decode step takes and returns
+  the K/V share (``Runtime.decode(kv_share=True)``): the rank gathers its
+  pages locally, attends its heads and writes back the blocks of the
+  rows it ran (``Runtime.rows``), so no collective reads the cache.  The
+  logits, the slot-resident state and the A/D counts come back whole, so
   the host reads (sampling, metering) see the global values.
 * Sampling is greedy (``argmax``) at temperature 0, else categorical from
   the engine's ``torch.Generator`` (the reference's ``jax.random`` stream
@@ -55,7 +59,6 @@ import numpy as np
 import torch
 
 from ..core.energy import adc_energy_pj
-from ..dist.sharding import active_mesh
 from .kvcache import ZERO_PAGE, PagedKVCache
 
 
@@ -151,11 +154,13 @@ class ServeEngine:
             self.block_size = self.kv.block_size
             self.state_cache = self.kv.make_state(max_batch)
             self.cache = None
-            mesh = getattr(rt, "mesh", None) or active_mesh()
+            mesh = getattr(rt, "mesh", None)
+            self._kv_share = mesh is not None
             if mesh is not None and self.kv.pools:
                 self.kv.place(mesh)
         else:
             self.kv = None
+            self._kv_share = False
             self.block_size = 0
             self.cache = rt.init_cache(max_batch, max_len)
         self.slots: list = [None] * max_batch
@@ -256,7 +261,7 @@ class ServeEngine:
             table1 = np.full((1, padded // bs), ZERO_PAGE, np.int32)
             table1[0, :reuse_n] = shared
             dense1 = self.kv.assemble(self.kv.make_state(1, n_reused),
-                                      table1)
+                                      table1, whole=True)
             positions = np.arange(n_reused, padded, dtype=np.int32)[None]
             (last_logits, small), rep = self.rt.prefill_cont(
                 toks[:, n_reused:], positions, dense1)
@@ -332,10 +337,13 @@ class ServeEngine:
         self.state_cache = self.kv.state_only(new_cache)
         if not self.kv.specs:
             return
-        blks = [self._write_blk(self.slots[i]) for i in active]
-        pages = [self.slots[i].block_table[b] for i, b in zip(active, blks)]
-        self.kv.write_blocks(new_cache, active, blks, pages,
-                             skip_static=True)
+        rows = self.rt.rows(self.max_batch) if self._kv_share else None
+        first = 0 if rows is None else rows.start
+        mine = [i for i in active if rows is None or first <= i < rows.stop]
+        blks = [self._write_blk(self.slots[i]) for i in mine]
+        pages = [self.slots[i].block_table[b] for i, b in zip(mine, blks)]
+        self.kv.write_blocks(new_cache, [i - first for i in mine], blks,
+                             pages, skip_static=True)
 
     def step(self) -> int:
         """Admit + one decode step for all active slots.  Returns #active."""
@@ -348,8 +356,10 @@ class ServeEngine:
         for i in active:
             toks[i, 0] = self.slots[i].generated[-1]
             temps[i] = self.slots[i].temperature
+        kw = {"kv_share": True} if self._kv_share else {}
         (logits, new_cache), rep = self.rt.decode(
-            toks, self._decode_cache(), self.extra_inputs(self.max_batch, 1))
+            toks, self._decode_cache(), self.extra_inputs(self.max_batch, 1),
+            **kw)
         self._writeback(new_cache, active)
         ops = float(rep.ad_ops)
         share = ops / len(active)

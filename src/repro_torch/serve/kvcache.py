@@ -24,9 +24,16 @@ with LRU eviction of cached prefixes when the pool runs dry.
 Under a mesh (``pool_pspecs``) a pool is a DTensor: the page axis stays
 replicated, because the host allocates pages and every data row must
 address them, and the head dims split over ``'model'`` as the dense
-``kv_pspec`` does, so a page costs each rank its share of the heads.
-``kv_pspec``/``cache_pspecs`` are the dense cache's specs, the
-reference's policy.
+``kv_pspec`` does, so a page costs each rank its share of the heads.  A
+decode step reads and writes only that share: :meth:`PagedKVCache.
+assemble` gathers pages from the rank's own block, with no collective,
+and the step's new cache is a share already (``dist.group.HeadShare``).
+A data rank writes back only its own rows' blocks, the rows it decodes;
+every other page (a prefill's, a copy-on-write copy, a zeroed one) is
+written alike on every rank.  A prefill still yields whole heads, cut to
+the share where it is written; a continued prefill gathers the whole
+heads of its warm pages once.  ``kv_pspec``/``cache_pspecs`` are the
+dense cache's specs, the reference's policy.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dist import sharding
+from ..dist import group, sharding
 from ..dist.sharding import P, PartitionSpec
 from ..models.registry import model_module
 
@@ -55,19 +62,6 @@ def _axis_size(mesh, axes) -> int:
     return n
 
 
-def _head_axes(mesh, cfg):
-    """(KV-head entry, head-dim entry): KV heads over 'model' when they
-    divide it, else the head dim, else neither."""
-    names = sharding.axis_names(mesh)
-    model = "model" if "model" in names else None
-    n_m = sharding.axis_size(mesh, model) if model else 1
-    if model and cfg.n_kv_heads % n_m == 0:
-        return model, None
-    if model and cfg.hd % n_m == 0:
-        return None, model
-    return None, None
-
-
 def _dp(mesh) -> tuple:
     return tuple(a for a in sharding._DP_AXES
                  if a in sharding.axis_names(mesh))
@@ -82,7 +76,7 @@ def _batch_entry(mesh, batch: int):
 def kv_pspec(mesh, cfg, batch: int, stacked: bool = True) -> PartitionSpec:
     """Spec of a (B, S, KV, hd) cache leaf (with a leading layer-stack dim
     when ``stacked``): batch over the data axes when it divides them, else
-    the sequence over 'data'; heads as :func:`_head_axes`."""
+    the sequence over 'data'; heads as :func:`dist.group.head_axes`."""
     dp = _dp(mesh)
     n_dp = _axis_size(mesh, dp)
     batch_ok = batch % n_dp == 0 if n_dp > 1 else True
@@ -91,7 +85,7 @@ def kv_pspec(mesh, cfg, batch: int, stacked: bool = True) -> PartitionSpec:
     else:
         b_ax = None
         s_ax = "data" if "data" in sharding.axis_names(mesh) else None
-    kv_ax, hd_ax = _head_axes(mesh, cfg)
+    kv_ax, hd_ax = group.head_axes(mesh, cfg)
     spec = (b_ax, s_ax, kv_ax, hd_ax)
     return P(*((None,) + spec)) if stacked else P(*spec)
 
@@ -100,7 +94,10 @@ def cache_pspecs(mesh, cfg, cache: dict, batch: int) -> dict:
     """{leaf: spec} of a cache from the model's ``init_cache``: K/V (and
     an encoder-decoder's cross-K/V ``xk``/``xv``) by :func:`kv_pspec`,
     the batch of every other leaf over the data axes, the recurrent
-    state's channels over 'model'."""
+    state's channels over 'model'.  A meshed decode step holds and
+    attends the K/V share these specs place (its rows, its heads) and
+    gathers none of it; two entries have no counterpart in the port yet
+    (:func:`step_pspecs`)."""
     kv = kv_pspec(mesh, cfg, batch)
     b_ax = _batch_entry(mesh, batch)
     model = "model" if "model" in sharding.axis_names(mesh) else None
@@ -125,11 +122,31 @@ def cache_pspecs(mesh, cfg, cache: dict, batch: int) -> dict:
     return out
 
 
+def step_pspecs(mesh, cfg, cache: dict, batch: int) -> dict:
+    """{leaf: spec} of the cache a meshed decode step of the port takes
+    and returns: :func:`cache_pspecs` without the entries the port does
+    not place yet, a batch-1 cache's sequence over 'data' (its
+    flash-decode combine) and the recurrent state's channels over
+    'model'; so the rows over the data axes and the K/V heads (or head
+    dims) over 'model'."""
+    specs = cache_pspecs(mesh, cfg, cache, batch)
+    out = {}
+    for key, spec in specs.items():
+        if key in ("k", "v", "xk", "xv") and len(spec) >= 4:
+            spec = P(*(spec[:-3] + (None,) + spec[-2:]))
+        elif key not in ("k", "v", "xk", "xv"):
+            spec = P(*(None if e == "model" else e for e in spec))
+        out[key] = spec
+    return out
+
+
 def pool_pspecs(mesh, cfg, pools: dict) -> dict:
     """{pool: spec} of ``PagedKVCache.pools`` (each ``(num_blocks, L,
     block_size, KV, hd)``): the page axis replicated, the head dims as
-    :func:`kv_pspec` splits them."""
-    kv_ax, hd_ax = _head_axes(mesh, cfg)
+    :func:`kv_pspec` splits them.  A decode step gathers pages from the
+    rank's own block and attends that share: no collective reads a
+    pool."""
+    kv_ax, hd_ax = group.head_axes(mesh, cfg)
     out = {}
     for key, leaf in pools.items():
         spec = [None] * leaf.ndim
@@ -139,9 +156,6 @@ def pool_pspecs(mesh, cfg, pools: dict) -> dict:
     return out
 
 
-def _local(t):
-    """A pool's storage on this rank (its DTensor's local block)."""
-    return t.to_local() if hasattr(t, "to_local") else t
 
 
 @dataclasses.dataclass
@@ -205,14 +219,18 @@ class PagedKVCache:
         """The slot-resident part of a cache."""
         return {k: v for k, v in cache.items() if k not in self.specs}
 
-    def assemble(self, state: dict, tables: np.ndarray) -> dict:
+    def assemble(self, state: dict, tables: np.ndarray,
+                 whole: bool = False) -> dict:
         """The dense cache for a decode / continued-prefill step, gathered
-        through ``tables`` (B, n_pages), padded with ZERO_PAGE."""
+        through ``tables`` (B, n_pages), padded with ZERO_PAGE: on a mesh
+        this rank's share of the heads (a decode step's, no collective),
+        or with ``whole`` every head (a continued prefill's warm pages,
+        gathered over 'model')."""
         t = torch.as_tensor(tables, dtype=torch.long, device=self.device)
         out = dict(state)
         for key, pool in self.pools.items():
-            g = _local(pool)[t]                  # (B, np, L, bs, KV, hd)
-            if pool is not _local(pool):
+            g = sharding.local(pool)[t]          # (B, np, L, bs, KV, hd)
+            if whole and pool is not sharding.local(pool):
                 g = self._whole_heads(pool, g)
             b, n_pages, n_l, bs = g.shape[:4]
             out[key] = g.permute(2, 0, 1, 3, 4, 5).reshape(
@@ -246,7 +264,9 @@ class PagedKVCache:
                      skip_static: bool = False) -> None:
         """Scatter the (slot, blk) windows of a dense cache into pages;
         ``skip_static`` leaves the static leaves' pages as they are (a
-        decode step's write-back)."""
+        decode step's write-back).  On a mesh a cache with whole heads (a
+        prefill's) is cut to this rank's share here; a decode step's is
+        the share already."""
         if not len(pages):
             return
         dev = self.device
@@ -258,15 +278,16 @@ class PagedKVCache:
                 continue
             leaf = cache[key].unflatten(2, (-1, self.block_size))
             data = leaf[:, s, b].transpose(0, 1)   # (A, L, bs, KV, hd)
-            if pool is not _local(pool):
+            local = sharding.local(pool)
+            if data.shape[-2:] != local.shape[-2:]:
                 data = self._own_heads(pool, data)
-            _local(pool)[p] = data.to(pool.dtype)
+            local[p] = data.to(pool.dtype)
         self._track_peak()
 
     def _zero_pages(self, pages) -> None:
         p = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for pool in self.pools.values():
-            _local(pool)[p] = 0
+            sharding.local(pool)[p] = 0
 
     # -- page bookkeeping ------------------------------------------------------
 
@@ -355,7 +376,7 @@ class PagedKVCache:
             return page
         [fresh] = self.alloc_pages(1)
         for pool in self.pools.values():
-            _local(pool)[fresh] = _local(pool)[page]
+            sharding.local(pool)[fresh] = sharding.local(pool)[page]
         self.release([page])
         table[blk] = fresh
         self.stats["cow_copies"] += 1

@@ -50,16 +50,16 @@ def split_lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux):
     """:func:`lm_loss` of a forward that holds this rank's block of the
     tokens (``dist.group.split_rows``): ``(loss, value)``.  ``loss``
     carries the gradient, the rank's token sum over every rank's token
-    count (its terms' gradient is one device's), plus its Switch loss'
-    share; ``value`` is the loss one device computes, the token mean of
-    every rank's terms gathered whole, plus the ranks' mean Switch
-    loss."""
+    count (its terms' gradient is one device's), plus the Switch loss,
+    which is the whole batch's on every rank and whose gradient flows
+    through this rank's rows only (``models.moe.switch_loss``); ``value``
+    is the loss one device computes, the token mean of every rank's terms
+    gathered whole, plus that Switch loss."""
     terms = token_ce(logits, labels)
     ranks = group.split_ranks()
-    loss = terms.sum() / (terms.numel() * ranks) + \
-        AUX_LOSS_WEIGHT * aux / ranks
+    loss = terms.sum() / (terms.numel() * ranks) + AUX_LOSS_WEIGHT * aux
     value = torch.mean(group.gather_tokens(terms.detach())) + \
-        AUX_LOSS_WEIGHT * (group.global_sum(aux.detach()) / ranks)
+        AUX_LOSS_WEIGHT * aux.detach()
     return loss, value
 
 

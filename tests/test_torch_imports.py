@@ -20,7 +20,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "train_lm_torch.py",
     ROOT / "tools" / "k1_flip_census.py",
-    ROOT / "tools" / "k3_stage_race.py"]
+    ROOT / "tools" / "k3_stage_race.py",
+    ROOT / "tools" / "decode_heads.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -110,6 +111,21 @@ def test_score_binding_matches_its_prototype():
                        "trq_score_launch")
     assert callable(kernel._score_lib)
     assert list(kernel._SCORE_ARGTYPES) == _ctypes_of(params)
+
+
+@pytest.mark.parametrize("entry,loader,argtypes", [
+    ("decode_attn_scores_launch", "_scores_lib", "_SCORES_ARGTYPES"),
+    ("decode_attn_values_launch", "_values_lib", "_VALUES_ARGTYPES")])
+def test_decode_attn_bindings_match_their_prototypes(entry, loader,
+                                                     argtypes):
+    """The same for the two entries of ``decode_attn.cu``, a kernel of the
+    port that replaces no Pallas kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attn import kernel
+    assert "decode_attn" in build.KERNELS
+    params = _c_params((build.CSRC / "decode_attn.cu").read_text(), entry)
+    assert callable(getattr(kernel, loader))
+    assert list(getattr(kernel, argtypes)) == _ctypes_of(params)
 
 
 def test_the_last_public_names():
